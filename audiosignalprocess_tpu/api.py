@@ -126,26 +126,23 @@ def pitch_shift_file(path_in: str, path_out: str, semitones: float,
     )
 
 
-def chain_file(path_in: str, path_out: str, rate_out: int = 48000,
+def make_chain(rate_in: int, rate_out: int = 48000,
                cutoff_hz: float | None = None, numtaps: int = 64,
                nfft: int = 1024, hop: int = 256,
                threshold_db: float = 6.0, reduction_db: float = 60.0,
                noise_frames: int = 8, envelope_hz: float | None = None,
-               env_numtaps: int = 129, block: int | None = None, **wav_kw):
-    """The flagship chain (config 5, BASELINE.json:11) as one call:
-    resample to ``rate_out`` -> FIR lowpass (``cutoff_hz``, default
-    0.3*Nyquist) -> spectral noise gate -> optional envelope demod
-    (``envelope_hz``).  Runs the fused composite stage, so the whole
-    chain streams as ONE Pallas kernel per block when ``block`` is set
-    (must be a multiple of the stage's input quantum;
-    kernels.res_chain_kernel.res_step_geometry) and as the fused
-    whole-file kernels otherwise."""
+               env_numtaps: int = 129):
+    """The flagship chain (config 5, BASELINE.json:11) for a file at
+    ``rate_in``, built: resample to ``rate_out`` -> FIR lowpass
+    (``cutoff_hz``, default 0.3*Nyquist) -> spectral noise gate ->
+    optional envelope demod (``envelope_hz``), as one composite stage
+    (``ResFIRGateStage``, or ``FIRGateStage`` when no resampling is
+    needed)."""
     from audiosignalprocess_tpu.pipeline import (
         Chain, FIRGateStage, ResFIRGateStage,
     )
 
-    x, rate = read_wav(path_in)
-    fr = Fraction(rate_out, rate)
+    fr = Fraction(rate_out, rate_in)
     fc = 2.0 * cutoff_hz / rate_out if cutoff_hz is not None else 0.3
     env_h = (design_fir(env_numtaps, 2.0 * envelope_hz / rate_out)
              if envelope_hz is not None else None)
@@ -163,6 +160,23 @@ def chain_file(path_in: str, path_out: str, rate_out: int = 48000,
             reduction_db=reduction_db, noise_frames=noise_frames, env_h=env_h)
     chain = Chain([stage])
     chain.build()
+    return chain
+
+
+def chain_file(path_in: str, path_out: str, rate_out: int = 48000,
+               cutoff_hz: float | None = None, numtaps: int = 64,
+               nfft: int = 1024, hop: int = 256,
+               threshold_db: float = 6.0, reduction_db: float = 60.0,
+               noise_frames: int = 8, envelope_hz: float | None = None,
+               env_numtaps: int = 129, block: int | None = None, **wav_kw):
+    """The flagship chain (``make_chain``) as one call on a WAV file,
+    block-streamed when ``block`` is set (a multiple of the stage's input
+    quantum; see ``ResFIRGateStage.init_state``) and whole-file
+    otherwise."""
+    x, rate = read_wav(path_in)
+    chain = make_chain(rate, rate_out, cutoff_hz, numtaps, nfft, hop,
+                       threshold_db, reduction_db, noise_frames,
+                       envelope_hz, env_numtaps)
     # Both modes process the ENTIRE file (end-of-file flush) and emit
     # exactly chain.out_len(n) samples: streaming pads to whole blocks
     # internally and drains the carried latency, so block= changes the

@@ -4,7 +4,7 @@ The reference repo (templeblock/audioSignalProcess) is a single-threaded C
 DSP codebase (BASELINE.json:5); its mount was empty at survey time
 (SURVEY.md §0), so this module pins the exact structural conventions that
 a straightforward C implementation of each algorithm uses, and every
-JAX/Pallas path in the framework is required to match it bit-for-bit in
+JAX path in the framework is required to match it bit-for-bit in
 structure (lengths, framing, ordering, scaling) and >= 60 dB SNR
 numerically.  A literal C oracle with the same conventions lives in
 ``audiosignalprocess_tpu/native/asp_ref.c`` and is cross-checked against
@@ -431,7 +431,7 @@ def noise_gate(
     mask = np.where(mag > thresh, 1.0, att)
     if release > 0.0:
         # release smoothing: s_k = max(mask_k, release * s_{k-1}) — a
-        # max-with-decay recurrence (associative, scan-friendly on TPU)
+        # max-with-decay recurrence (associative, scan-friendly on device)
         out = np.empty_like(mask)
         state = np.zeros_like(mask[..., 0, :])
         for k in range(mask.shape[-2]):

@@ -3,7 +3,7 @@
 Convention (oracle-pinned): full-wave rectify -> causal FIR lowpass,
 scaled by pi/2 (sine-carrier calibration).  ``hilbert_envelope`` is the
 analytic-signal variant via rfft spectrum doubling.
-Pure VPU elementwise + the FIR path (MXU conv / Pallas MAC).
+Pure elementwise work + the FIR path (one XLA convolution).
 """
 
 from __future__ import annotations

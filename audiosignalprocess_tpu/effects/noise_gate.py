@@ -50,21 +50,10 @@ def noise_gate(
     release: float = 0.0,
     window_kind: str = "hann",
     impl: str = fft_ops.DEFAULT_IMPL,
-    fused: bool = False,
 ) -> jnp.ndarray:
-    """Gate on the last axis.  Output length = istft length of the frames.
-
-    ``fused=True`` routes through the fused Pallas kernel
-    (kernels/gate_kernel.py): STFT -> mask -> WOLA ISTFT in one
-    VMEM-resident pass (release smoothing included).
-    """
+    """Gate on the last axis.  Output length = istft length of the frames."""
     nframes = num_frames(jnp.shape(x)[-1], nfft, hop)
     check(nframes >= noise_frames, f"signal has {nframes} frames < noise_frames={noise_frames}")
-    if fused:
-        from audiosignalprocess_tpu.kernels.gate_kernel import noise_gate_fused
-
-        return noise_gate_fused(x, nfft, hop, threshold_db, reduction_db,
-                                noise_frames, release, window_kind)
     spec = stft(x, nfft, hop, window_kind, impl=impl)
     mag = jnp.abs(spec)
     floor = jnp.mean(mag[..., :noise_frames, :], axis=-2, keepdims=True)

@@ -4,7 +4,7 @@ Time stretch: output frame i samples analysis position t_i = i*rate
 (frames), linearly interpolating magnitude and accumulating the
 deviation-corrected instantaneous frequency.  The phase accumulation is a
 prefix sum — implemented as a ``jnp.cumsum`` over frames (no sequential
-scan), so the whole vocoder is dense batched tensor work on TPU.
+scan), so the whole vocoder is dense batched tensor work.
 
 Pitch shift = time stretch by 1/factor + polyphase resample by the
 rational approximation of the factor.
@@ -52,7 +52,7 @@ def unit_rotor(zr, zi, eps: float = 1e-36):
 
 def cumrotor(ur, ui, axis: int = -2):
     """Inclusive cumulative product of planar rotors along ``axis``
-    (log-depth associative scan — the TPU-native prefix 'sum')."""
+    (log-depth associative scan — the parallel prefix 'sum')."""
 
     def comb(a, b):
         ar, ai = a

@@ -4,7 +4,7 @@
 framework's DSP chain with the pinned conventions — the stand-in for the
 reference C code (the reference mount was empty; SURVEY.md §0).  It is
 compiled on demand with the system C compiler and bound via ctypes; the
-numpy oracle (cpu_ref/oracle.py) and every JAX/Pallas path are
+numpy oracle (cpu_ref/oracle.py) and every JAX path are
 cross-checked against it in tests/unit/test_native_oracle.py.
 """
 

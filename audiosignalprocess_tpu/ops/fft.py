@@ -1,29 +1,20 @@
-"""FFT family: radix-2, split-radix, and the TPU-native four-step matmul FFT.
+"""FFT family: XLA's FFT, radix-2, split-radix and a four-step matmul FFT.
 
 Capability parity with the reference's transform layer (SURVEY.md §2 rows
 3-5: radix-2 FFT/IFFT with bit reversal, split-radix FFT/IFFT, real-FFT
-packing).  Three implementations behind one API:
+packing).  Four implementations behind one API:
 
+- ``impl="xla"``        — ``jnp.fft``: XLA lowers it to cuFFT on the GPU.
+  The default (``"auto"`` resolves to it, see ``AUTO_IMPL``).
 - ``impl="radix2"``     — iterative DIT with explicit bit-reversal, the
   classic C structure, vectorized over stages (lax-free Python stage loop,
   static shapes).  Structural-parity path.
 - ``impl="splitradix"`` — recursive split-radix (L-shaped butterflies),
-  trace-time recursion.  Capability-parity path; irregular butterflies
-  vectorize poorly on TPU so it is not the perf default (SURVEY.md §7).
+  trace-time recursion.  Capability-parity path.
 - ``impl="matmul"``     — four-step (Bailey) factorization N = N1*N2:
-  DFT_N1 matmul -> twiddle -> DFT_N2 matmul -> transpose.  This maps the
-  FFT onto the MXU as batched matmuls; batched audio FFTs are HBM-bound,
-  so the extra matmul FLOPs are free and the kernel runs at the memory
-  roofline.  **This is the TPU-native performance path.**
-- ``impl="xla"``        — jnp.fft fallback for cross-checking.
-- ``impl="auto"``       — resolve per backend and transform at trace time:
-  on TPU, complex fft/ifft route to the Stockham butterfly kernel
-  (``pallas_sk``, the measured winner at every size) and rfft/irfft to
-  ``pallas_sk_split`` (XLA pack/untangle around the complex Stockham
-  kernel — the round-3 measured winner at exact-f32 SNR; the fused
-  single-pass real kernels remain the full-bandwidth design point — see
-  docs/PERF.md "real-FFT kernels"); f64 and non-TPU backends resolve to
-  ``matmul``.
+  DFT_N1 matmul -> twiddle -> DFT_N2 matmul -> transpose, every matmul
+  at ``Precision.HIGHEST`` (true f32; the default would be TF32 on the
+  GPU, ~60 dB at best).  Kept as the measured alternative to cuFFT.
 
 Forward is unnormalized, inverse scales 1/N (C convention, oracle-pinned).
 All functions are batched over leading axes; the transform is on the last
@@ -34,7 +25,6 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 
 import jax
 import jax.numpy as jnp
@@ -43,35 +33,19 @@ from audiosignalprocess_tpu.utils.validate import check
 
 DEFAULT_IMPL = "auto"
 
-
-def _resolve_impl(impl: str, kind: str, dtype) -> str:
-    """Resolve ``impl="auto"`` to a concrete implementation.
-
-    kind: "fft" (complex transform) or "rfft" (real packing).  The TPU
-    choices follow the measured roofline (docs/PERF.md): Stockham
-    butterfly kernel for complex transforms; for the real packing, the
-    SPLIT route — XLA pack/untangle around the Stockham complex kernel
-    ("pallas_sk_split", measured <= the MXU four-step at n in {1024,
-    4096} and ~exact-f32 SNR vs the four-step's bf16x3) — while the
-    single-pass fused real kernels (impl="pallas_sk") stay the
-    full-bandwidth design point (their in-kernel sublane deinterleave
-    is compute-bound on this throttled chip; docs/PERF.md isolation).
-    f64 (no TPU support) and non-TPU backends get the XLA einsum
-    four-step, which the compiler fuses well everywhere.
-    """
-    if impl != "auto":
-        return impl
-    if dtype in (jnp.float64, np.float64, jnp.complex128, np.complex128):
-        return "matmul"
-    if jax.default_backend() == "tpu" and not _interpret_flag():
-        return "pallas_sk" if kind == "fft" else "pallas_sk_split"
-    return "matmul"
+# What ``impl="auto"`` means, for every dtype and transform: XLA's FFT
+# (cuFFT on the GPU) measured 3-13x faster than the four-step matmul FFT
+# at n = 1024 and 4096 on the H100 (PERF.md, FFT route table).
+AUTO_IMPL = "xla"
 
 
-def _interpret_flag() -> bool:
-    # must agree with kernels/fft_kernel._interpret: the flag is the
-    # STRING "1", so ASP_INTERPRET_PALLAS=0 keeps the compiled perf path
-    return os.environ.get("ASP_INTERPRET_PALLAS") == "1"
+def _resolve_impl(impl: str) -> str:
+    """Resolve ``impl="auto"`` to ``AUTO_IMPL``; reject unknown names."""
+    if impl == "auto":
+        return AUTO_IMPL
+    check(impl == "xla" or impl in _IMPLS,
+          f"unknown FFT impl {impl!r}: auto, xla, {', '.join(_IMPLS)}")
+    return impl
 
 # ---------------------------------------------------------------------------
 # Design-time tables (float64 numpy, embedded as constants)
@@ -172,7 +146,7 @@ def _fft_splitradix(x: jnp.ndarray, sign: float) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# four-step matmul FFT (MXU path)
+# four-step matmul FFT
 # ---------------------------------------------------------------------------
 
 
@@ -182,9 +156,9 @@ def _fft_matmul_planar(
     """Four-step FFT on (real, imag) planes; last axis length n = n1*n2.
 
     With n = n2*a + b and k = n1*d + c:
-      step 1: Y[c,b] = sum_a F_{n1}[c,a] X[a,b]        (MXU matmul)
-      step 2: Z[c,b] = Y[c,b] * W_n^{cb}               (VPU twiddle)
-      step 3: out[c,d] = sum_b Z[c,b] F_{n2}[b,d]      (MXU matmul)
+      step 1: Y[c,b] = sum_a F_{n1}[c,a] X[a,b]        (matmul)
+      step 2: Z[c,b] = Y[c,b] * W_n^{cb}               (twiddle)
+      step 3: out[c,d] = sum_b Z[c,b] F_{n2}[b,d]      (matmul)
       natural order: transpose (d,c) and flatten.
     """
     n = xr.shape[-1]
@@ -243,60 +217,10 @@ def _fft_matmul(x: jnp.ndarray, sign: float) -> jnp.ndarray:
 # Public API
 # ---------------------------------------------------------------------------
 
-def _fft_pallas(x, sign):
-    from audiosignalprocess_tpu.kernels import fft_kernel
-
-    return fft_kernel.fft_complex(x, sign, core=fft_kernel.fft_fourstep)
-
-
-def _fft_pallas_r2(x, sign):
-    # batch-in-lanes butterfly kernel: compiles on TPU (the classic DIT
-    # loop vectorized across channels; kernels/fft_kernel.py)
-    from audiosignalprocess_tpu.kernels import fft_kernel
-
-    return fft_kernel.fft_complex(x, sign, core=fft_kernel.fft_radix2_lanes)
-
-
-def _fft_pallas_r2_stages(x, sign):
-    # structural mirror of the C in-place loop (lane-reshaping stages:
-    # interpret-only; kept for capability/testing parity)
-    from audiosignalprocess_tpu.kernels import fft_kernel
-
-    return fft_kernel.fft_complex(x, sign, core=fft_kernel.fft_radix2_stages)
-
-
-def _fft_pallas_sk(x, sign):
-    # self-sorting Stockham butterflies, in-kernel transposes: one HBM
-    # read + one write per plane (the memory-bound speed of light)
-    from audiosignalprocess_tpu.kernels import fft_kernel
-
-    return fft_kernel.fft_complex(x, sign, core=fft_kernel.fft_stockham_lanes)
-
-
-def _fft_pallas_cg(x, sign):
-    # constant-geometry (Pease/Korn-Lambiotte) butterflies: the stage
-    # loop is ROLLED into one fori_loop body (O(1) trace size in log n)
-    # at the cost of one XLA bit-reversal pass; on-chip compile-time and
-    # throughput A/B vs the Stockham kernel recorded in docs/KERNELS.md
-    # "Constant-geometry rolled kernel (Pease)"
-    from audiosignalprocess_tpu.kernels import fft_kernel
-
-    return fft_kernel.fft_complex(x, sign, core=fft_kernel.fft_pease_lanes)
-
-
 _IMPLS = {
     "radix2": _fft_radix2,
     "splitradix": _fft_splitradix,
     "matmul": _fft_matmul,
-    "pallas": _fft_pallas,        # four-step MXU Pallas kernel
-    "pallas_r2": _fft_pallas_r2,  # TPU-compiled butterfly kernel (lanes)
-    "pallas_sk": _fft_pallas_sk,  # Stockham butterflies (perf path)
-    "pallas_r2_stages": _fft_pallas_r2_stages,  # interpret-only structural
-    "pallas_cg": _fft_pallas_cg,  # rolled constant-geometry (fast compile)
-    # real transforms only: XLA pack/untangle around the Stockham kernel
-    # (the measured real-transform default on this chip; the FUSED real
-    # kernels rfft_stockham/irfft_stockham are impl="pallas_sk")
-    "pallas_sk_split": _fft_pallas_sk,
 }
 
 
@@ -305,7 +229,7 @@ def fft(x: jnp.ndarray, impl: str = DEFAULT_IMPL) -> jnp.ndarray:
     x = jnp.asarray(x)
     if not jnp.issubdtype(x.dtype, jnp.complexfloating):
         x = x.astype(_as_complex_dtype(x.dtype))
-    impl = _resolve_impl(impl, "fft", x.dtype)
+    impl = _resolve_impl(impl)
     if impl == "xla":
         return jnp.fft.fft(x)
     n = x.shape[-1]
@@ -318,7 +242,7 @@ def ifft(x: jnp.ndarray, impl: str = DEFAULT_IMPL) -> jnp.ndarray:
     x = jnp.asarray(x)
     if not jnp.issubdtype(x.dtype, jnp.complexfloating):
         x = x.astype(_as_complex_dtype(x.dtype))
-    impl = _resolve_impl(impl, "fft", x.dtype)
+    impl = _resolve_impl(impl)
     if impl == "xla":
         return jnp.fft.ifft(x)
     n = x.shape[-1]
@@ -336,20 +260,11 @@ def rfft(x: jnp.ndarray, impl: str = DEFAULT_IMPL) -> jnp.ndarray:
     # would silently compute garbage on every non-xla impl
     check(not jnp.issubdtype(x.dtype, jnp.complexfloating),
           "rfft requires a real-valued input (use fft for complex signals)")
-    impl = _resolve_impl(impl, "rfft", x.dtype)
+    impl = _resolve_impl(impl)
     if impl == "xla":
         return jnp.fft.rfft(x)
     n = x.shape[-1]
     check(n & (n - 1) == 0 and n >= 2, "power-of-two length >= 2 required")
-    if impl == "pallas_sk" and n >= 4:
-        # dedicated real-FFT kernel: pack + untangle fused in-kernel
-        # (one HBM read + one write; kernels/fft_kernel.py)
-        from audiosignalprocess_tpu.kernels import fft_kernel
-
-        xf = x.reshape((-1, n))
-        yr, yi = fft_kernel.rfft_stockham(xf)
-        return (yr + 1j * yi).astype(_as_complex_dtype(x.dtype)).reshape(
-            x.shape[:-1] + (n // 2 + 1,))
     half = n // 2
     cdt = _as_complex_dtype(x.dtype)
     if half == 1:
@@ -368,7 +283,7 @@ def rfft(x: jnp.ndarray, impl: str = DEFAULT_IMPL) -> jnp.ndarray:
 def irfft(spec: jnp.ndarray, n: int, impl: str = DEFAULT_IMPL) -> jnp.ndarray:
     """Inverse real FFT: n real samples from n/2+1 bins (1/N scaling)."""
     spec = jnp.asarray(spec)
-    impl = _resolve_impl(impl, "rfft", spec.dtype)
+    impl = _resolve_impl(impl)
     if impl == "xla":
         return jnp.fft.irfft(spec, n)
     half = n // 2
@@ -376,14 +291,6 @@ def irfft(spec: jnp.ndarray, n: int, impl: str = DEFAULT_IMPL) -> jnp.ndarray:
     # e.g. a magnitude spectrum, so match f64 for both c128 and f64)
     rdtype = (jnp.float64 if spec.dtype in (jnp.complex128, jnp.float64)
               else jnp.float32)
-    if impl == "pallas_sk" and n >= 4:
-        # dedicated inverse real-FFT kernel (untangle + interleave fused)
-        from audiosignalprocess_tpu.kernels import fft_kernel
-
-        sf = spec[..., : half + 1].reshape((-1, half + 1))
-        y = fft_kernel.irfft_stockham(
-            jnp.real(sf).astype(rdtype), jnp.imag(sf).astype(rdtype), n)
-        return y.reshape(spec.shape[:-1] + (n,))
     if half == 1:
         a, b = jnp.real(spec[..., 0]), jnp.real(spec[..., 1])
         return (jnp.stack([a + b, a - b], axis=-1) * 0.5).astype(rdtype)

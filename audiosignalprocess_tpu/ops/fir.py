@@ -3,8 +3,8 @@
 Design is host-side float64 (delegates to the oracle so taps are shared
 bit-for-bit with the CPU reference).  ``fir_direct`` is the causal
 direct-form filter: y[n] = sum_t h[t] x[n-t], output length == len(x).
-On TPU it lowers to an XLA convolution (MXU); the Pallas MAC kernel
-(kernels/fir_kernel.py) is the hand-tuned path behind the same semantics.
+It lowers to one XLA convolution at ``Precision.HIGHEST`` (true f32: the
+default precision would run TF32 on the GPU, ~60 dB at best).
 """
 
 from __future__ import annotations
@@ -23,19 +23,13 @@ def design_fir(
     return oracle.design_fir(numtaps, cutoff, window_kind, pass_zero=pass_zero)
 
 
-def fir_direct(x: jnp.ndarray, h, history: jnp.ndarray | None = None,
-               fused: bool = False) -> jnp.ndarray:
+def fir_direct(x: jnp.ndarray, h,
+               history: jnp.ndarray | None = None) -> jnp.ndarray:
     """Causal direct-form FIR on the last axis, output length == len(x).
 
     ``history``: optional (..., T-1) previous input samples for streaming
     continuity (defaults to zeros — cold start, matching the oracle).
-    ``fused=True`` routes through the Pallas MAC kernel
-    (kernels/fir_kernel.fir_mac, same semantics).
     """
-    if fused:
-        from audiosignalprocess_tpu.kernels.fir_kernel import fir_mac
-
-        return fir_mac(x, h, history=history)
     x = jnp.asarray(x)
     h = np.asarray(h, dtype=np.float64)
     t = len(h)

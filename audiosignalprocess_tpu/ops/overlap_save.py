@@ -5,10 +5,9 @@ cpu_ref/oracle.overlap_save: block size B = nfft - (T-1); each block's
 input is the previous T-1 samples + B new ones; the first T-1 outputs per
 block are discarded.
 
-TPU design: all blocks are batched through the MXU four-step rfft/irfft
-in one shot — the block axis is a pure batch axis, so the whole operation
-is two batched matmul-FFTs and an elementwise spectrum multiply.  The
-time-sharded variant exchanges the T-1-sample halo via ppermute
+All blocks go through one batched rfft/irfft — the block axis is a pure
+batch axis, so the whole operation is two batched FFTs and an elementwise
+spectrum multiply.  The time-sharded variant exchanges the T-1-sample halo via ppermute
 (parallel/sharded.py).
 """
 
@@ -34,19 +33,12 @@ def overlap_save(
     nfft: int,
     history: jnp.ndarray | None = None,
     impl: str = fft_ops.DEFAULT_IMPL,
-    fused: bool = False,
 ) -> jnp.ndarray:
     """Causal FIR via overlap-save on the last axis; output length == input.
 
     ``history``: optional (..., T-1) previous inputs (streaming); zeros
-    when absent (cold start).  ``fused=True`` routes through the fused
-    Pallas kernel (kernels/os_kernel.py): one VMEM-resident
-    rfft -> spectrum-multiply -> irfft pass at the HBM roofline.
+    when absent (cold start).
     """
-    if fused:
-        from audiosignalprocess_tpu.kernels.os_kernel import overlap_save_fused
-
-        return overlap_save_fused(x, h, nfft, history=history)
     x = jnp.asarray(x)
     h = np.asarray(h, dtype=np.float64)
     t = len(h)

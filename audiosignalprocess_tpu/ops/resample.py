@@ -5,12 +5,14 @@ y[j] = sum_k h[p_j + up*k] * x[m_j - k] with j*down = m_j*up + p_j;
 ``zero_phase=True`` advances by the filter group delay.  Output length
 = ceil(len(x)*up/down).
 
-TPU design: the whole resampler is ONE ``lax.conv_general_dilated`` call —
-``lhs_dilation=up`` realizes the zero-stuffed upsampling, ``window_strides
-=down`` the decimation, reversed taps the causal convolution.  XLA lowers
-this onto the MXU; the Pallas polyphase-MAC kernel
-(kernels/resample_kernel.py) is the hand-tuned path behind the same
-semantics.
+Polyphase form: output j = c*up + r (cycle c, phase slot r) reads the
+input window x[c*down - (nk-1) : c*down - (nk-1) + W] through row r of a
+static (up, W) phase matrix (``phase_matrix``).  That is ONE strided
+``lax.conv_general_dilated`` (stride ``down``, ``up`` output features)
+at ``Precision.HIGHEST`` (true f32 on the GPU, not TF32).  Nothing is
+zero-stuffed: an upsample-then-filter convolution (``lhs_dilation=up``)
+would materialize ``up`` times the input — 100 GiB for config 5 on a
+GPU.
 """
 
 from __future__ import annotations
@@ -39,6 +41,25 @@ def history_len(h_len: int, up: int, down: int) -> int:
     return -(-(nk - 1) // down) * down
 
 
+def phase_matrix(h, up: int, down: int, delay: int = 0) -> np.ndarray:
+    """(up, W) float64 matrix A of the polyphase form: output c*up + r is
+    sum_w A[r, w] * x[c*down - (nk-1) + w], with nk = taps_per_phase and
+    ``delay`` the advance in upsampled samples (0: causal)."""
+    h = np.asarray(h, dtype=np.float64)
+    t = len(h)
+    nk = taps_per_phase(t, up)
+    r = np.arange(up)
+    pos = r * down + delay
+    m = pos // up  # newest input sample of slot r, relative to c*down
+    p = pos - m * up  # its polyphase phase
+    a = np.zeros((up, int(m.max()) + nk))
+    for k in range(nk):
+        tap = p + up * k
+        ok = tap < t
+        a[r[ok], m[ok] - k + nk - 1] = h[tap[ok]]
+    return a
+
+
 def resample_poly(
     x: jnp.ndarray,
     up: int,
@@ -46,7 +67,6 @@ def resample_poly(
     h=None,
     zero_phase: bool = True,
     history: jnp.ndarray | None = None,
-    fused: bool = False,
 ) -> jnp.ndarray:
     """Rational resample on the last axis.  Output ceil(n*up/down) samples.
 
@@ -54,14 +74,7 @@ def resample_poly(
     (requires zero_phase=False, H a multiple of ``down``, and
     len(x) a multiple of ``down``); returns the len(x)*up/down outputs of
     the new block, continuing the global causal stream exactly.
-    ``fused=True`` routes through the Pallas phase-matrix MXU kernel
-    (kernels/resample_kernel.resample_mac, same semantics).
     """
-    if fused:
-        from audiosignalprocess_tpu.kernels.resample_kernel import resample_mac
-
-        return resample_mac(x, up, down, h=h, zero_phase=zero_phase,
-                            history=history)
     g = gcd(up, down)
     up, down = up // g, down // g
     x = jnp.asarray(x)
@@ -89,21 +102,21 @@ def resample_poly(
 
     n = x.shape[-1]
     delay = (t - 1) // 2 if zero_phase else 0
-    ld = (n - 1) * up + 1  # zero-stuffed length
-    pad_lo = t - 1 - delay
-    total_out = skip + nout
-    pad_hi = max(0, (total_out - 1) * down + t - ld - pad_lo)
-
-    xf = x.reshape((-1, 1, n))
-    rhs = jnp.asarray(h[::-1].copy(), x.dtype).reshape((1, 1, t))
+    a = phase_matrix(h, up, down, delay)
+    nk = taps_per_phase(t, up)
+    w = a.shape[1]
+    cycles = -(-(skip + nout) // up)
+    # x[i] sits at xp[i + nk - 1]; cycle c reads xp[c*down : c*down + w]
+    xp = jnp.pad(x, [(0, 0)] * len(batch) + [(
+        nk - 1, max(0, (cycles - 1) * down + w - (nk - 1) - n))])
+    # one strided convolution with ``up`` output features: feature r of
+    # cycle c is sum_w a[r, w] * xp[c*down + w] (correlation, no flip)
     y = lax.conv_general_dilated(
-        xf,
-        rhs,
-        window_strides=(down,),
-        padding=[(pad_lo, pad_hi)],
-        lhs_dilation=(up,),
+        xp.reshape((-1, 1, xp.shape[-1])),
+        jnp.asarray(a, x.dtype).reshape((up, 1, w)),
+        window_strides=(down,), padding=[(0, 0)],
         dimension_numbers=("NCH", "OIH", "NCH"),
         precision=lax.Precision.HIGHEST,
-    )
-    y = y.reshape(batch + (y.shape[-1],))
+    )[..., :cycles]
+    y = jnp.swapaxes(y, -1, -2).reshape(batch + (cycles * up,))
     return y[..., skip : skip + nout]

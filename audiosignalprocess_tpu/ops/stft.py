@@ -5,10 +5,10 @@ center padding, no partial frames; ISTFT overlap-adds w*irfft(S) and
 normalizes by the summed squared window (clamped).  Output length
 = nfft + (frames-1)*hop.
 
-TPU notes: framing is a gather with a contiguous inner window (XLA lowers
-to dynamic slices); the overlap-add uses the reshape-diagonal trick when
-hop divides nfft (R = nfft//hop static adds instead of a scatter), which
-keeps everything dense VPU/MXU work.
+Framing is a gather with a contiguous inner window (XLA lowers it to
+dynamic slices); the overlap-add uses the reshape-diagonal trick when hop
+divides nfft (R = nfft//hop static adds instead of a scatter), so the
+whole transform stays dense elementwise and FFT work.
 """
 
 from __future__ import annotations

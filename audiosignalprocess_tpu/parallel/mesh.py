@@ -3,7 +3,7 @@
 The framework's parallelism surface is DP(channel) x SP/CP(time):
 - ``channel`` axis: independent channels, embarrassingly parallel.
 - ``time`` axis: long recordings split into time blocks — the long-context
-  mechanism; neighbor halos ride ICI via ppermute (halo.py).
+  mechanism; neighbor halos travel by ppermute (halo.py).
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from audiosignalprocess_tpu.utils.validate import check
 def make_mesh(channel: int = 1, time: int = 1, devices=None) -> Mesh:
     """(channel, time) mesh over the first channel*time devices.
 
-    Lay the time axis innermost so neighbor halo hops ride adjacent ICI
-    links on a pod slice.
+    The shape follows the algorithm alone: NVLink joins the cards of a
+    host all to all, so no device order is preferred.
     """
     if devices is None:
         devices = jax.devices()

@@ -9,9 +9,9 @@ Design (SURVEY.md §3.3, §5):
   neighbor; the noise floor (a global statistic of the first frames) is
   broadcast from time-shard 0 with a psum.
 
-All comms are single-hop neighbor ppermutes + one psum — they ride ICI on
-a pod slice and overlap with the per-shard FFT work under XLA's async
-collectives.
+All comms are single-hop neighbor ppermutes + one psum; across GPUs XLA
+hands them to NCCL (over NVLink within a host), and its async collectives
+can overlap them with the per-shard FFT work.
 """
 
 from __future__ import annotations
@@ -47,11 +47,7 @@ def _check_halo(halo: int, local_len: int) -> None:
 
 
 def _smap(mesh: Mesh, fn):
-    # check_vma=False: Pallas calls inside shard_map produce outputs with
-    # no varying-mesh-axes annotation; correctness is pinned by the
-    # sharded-== -unsharded test suite instead.
-    return jax.jit(shard_map(fn, mesh=mesh, in_specs=(_SPEC,), out_specs=_SPEC,
-                             check_vma=False))
+    return jax.jit(shard_map(fn, mesh=mesh, in_specs=(_SPEC,), out_specs=_SPEC))
 
 
 # ---------------------------------------------------------------------------
@@ -73,19 +69,16 @@ def sharded_fir(mesh: Mesh, h) -> callable:
 
 
 def sharded_overlap_save(mesh: Mesh, h, nfft: int,
-                         impl: str = fft_ops.DEFAULT_IMPL,
-                         fused: bool = False) -> callable:
+                         impl: str = fft_ops.DEFAULT_IMPL) -> callable:
     """(C, N) -> (C, N) causal FIR via overlap-save with halo exchange
-    (config 4, BASELINE.json:10).  ``fused=True`` runs the fused Pallas
-    kernel per shard (halo history feeds the kernel's streaming history)."""
+    (config 4, BASELINE.json:10)."""
     h = np.asarray(h, np.float64)
     t = len(h)
 
     def local(x):
         _check_halo(t - 1, x.shape[-1])
         ext = halo_left(x, t - 1, "time")
-        return overlap_save(x, h, nfft, history=ext[..., : t - 1], impl=impl,
-                            fused=fused)
+        return overlap_save(x, h, nfft, history=ext[..., : t - 1], impl=impl)
 
     return _smap(mesh, local)
 
@@ -139,18 +132,9 @@ def gate_shard_body(
     impl: str,
     axis_name: str = "time",
     release: float = 0.0,
-    fused: bool = False,
 ) -> jnp.ndarray:
     """Per-shard gate body; call inside shard_map.  Output == GateStage.full
-    restricted to this shard's region (last nfft-hop global samples zero).
-
-    ``fused=True`` runs the per-shard frame/FFT/mask/IFFT/OLA as ONE
-    Pallas kernel (kernels.gate_kernel.gate_shard_fused) with the
-    cross-shard constructs — psum'd noise floor, EOF frame validity,
-    OLA spill exchange, global-position WOLA norm — kept in XLA around
-    it (BASELINE.json:5 Pallas inner loops on the sharded pod path).
-    Requires release == 0 (the release scan's cross-shard correction
-    needs the masks before synthesis; the jnp body handles release)."""
+    restricted to this shard's region (last nfft-hop global samples zero)."""
     dtype = x.dtype
     d = nfft - hop
     l = x.shape[-1]
@@ -169,35 +153,6 @@ def gate_shard_body(
     m = l // hop
     starts = idx * l + hop * jnp.arange(m, dtype=jnp.int32)
     valid_f = starts <= n_glob - nfft
-    if fused:
-        from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-
-        # same fallback rules as GateStage: f64 and hop narrower than the
-        # kernel lane width run the jnp body (identical numeric contract)
-        fused = dtype != jnp.float64 and hop % _grid_split(nfft)[1] == 0
-    if fused:
-        check(release == 0.0, "fused sharded gate requires release == 0")
-        from audiosignalprocess_tpu.kernels.gate_kernel import (
-            floor_grid_prologue_half, gate_shard_fused,
-        )
-
-        # noise floor via the fused kernel's prologue convention (matmul
-        # rfft — matches noise_gate_fused bit-for-bit), psum'd from shard 0.
-        # Slice the HALO-EXTENDED signal so short shards work: the prologue
-        # needs nfft + (noise_frames-1)*hop = d + noise_frames*hop samples,
-        # and ext holds l + d >= d + noise_frames*hop of them (the l//hop >=
-        # noise_frames check above).  For shard 0 these are exactly the
-        # global signal's first samples, same as the jnp body's ext frames.
-        floor_loc = floor_grid_prologue_half(
-            ext[..., : d + noise_frames * hop], nfft, hop, window_kind)
-        floor_half = lax.psum(
-            jnp.where(idx == 0, floor_loc, jnp.zeros_like(floor_loc)),
-            axis_name)
-        acc = gate_shard_fused(ext, floor_half, valid_f, nfft, hop,
-                               threshold_db, reduction_db, window_kind)
-        return _spill_and_norm(acc, idx, l, d,
-                               nfft + ((n_glob - nfft) // hop) * hop,
-                               head_np, tail_np, const, dtype, axis_name)
     frames = frame_op(ext, nfft, hop)  # (..., l/hop, nfft)
     valid = valid_f[:, None].astype(dtype)
     spec = fft_ops.rfft(frames * w, impl=impl) * valid
@@ -215,7 +170,7 @@ def gate_shard_body(
         # carry obeys C_i = max(L_{i-1}, r^m * C_{i-1}), i.e.
         # C_i = max_{j<i} L_j * r^{m*(i-1-j)}; then the corrected local
         # scan is s'_q = max(s_q, C_i * r^{q+1}).  One all_gather of the
-        # (nbins,)-sized summaries — the gather rides ICI and is tiny.
+        # (nbins,)-sized summaries — the gather is tiny.
         L = mask[..., -1:, :]
         allL = lax.all_gather(L, axis_name)  # (n_sh, ..., 1, nbins)
         rm = release ** m
@@ -276,36 +231,14 @@ def sharded_noise_gate(
     window_kind: str = "hann",
     impl: str = fft_ops.DEFAULT_IMPL,
     release: float = 0.0,
-    fused: bool = False,
 ) -> callable:
     """(C, N) -> (C, N) spectral noise gate == GateStage.full, channel+time
-    sharded (configs 3/5).
-
-    ``fused=True`` runs the fused Pallas gate kernel per shard: with no
-    time sharding, the whole-file kernel (channel shards see whole
-    signals); with time sharding, the per-shard kernel around the XLA
-    cross-shard constructs (gate_shard_body fused=True — psum floor, EOF
-    validity, spill exchange, global norm).  Release smoothing with time
-    shards uses the jnp body (its cross-shard scan correction needs the
-    masks before synthesis)."""
-    time_sharded = dict(zip(mesh.axis_names, mesh.devices.shape)).get(
-        "time", 1) > 1
+    sharded (configs 3/5)."""
 
     def local(x):
-        if fused and not time_sharded:
-            from audiosignalprocess_tpu.kernels.gate_kernel import (
-                noise_gate_fused,
-            )
-
-            y = noise_gate_fused(x, nfft, hop, threshold_db, reduction_db,
-                                 noise_frames, release, window_kind)
-            pad = x.shape[-1] - y.shape[-1]
-            return jnp.concatenate(
-                [y, jnp.zeros(x.shape[:-1] + (pad,), y.dtype)], axis=-1)
         return gate_shard_body(x, nfft, hop, threshold_db, reduction_db,
                                noise_frames, window_kind, impl,
-                               release=release,
-                               fused=fused and release == 0.0)
+                               release=release)
 
     return _smap(mesh, local)
 
@@ -438,25 +371,18 @@ def chain_shard_body(chain, x: jnp.ndarray, axis_name: str = "time") -> jnp.ndar
         StretchStage,
     )
 
-    # composite stages shard as their exact component composition (the
-    # one-kernel fusion is a single-shard locality optimization; across
-    # shards the halo/psum structure is the components').  A folded
-    # envelope tail shards as the direct-FIR form (|x| halo + MAC): the
-    # overlap-save branch below cannot take an abs-pre.
-    def _env_direct(fg):
-        return FIRStage(h=fg._env.h, pre="abs",
-                        post_scale=fg._env.post_scale, fused=fg.fused)
-
+    # composite stages shard as their component composition (their envelope
+    # tail is already the direct-FIR form: the overlap-save branch below
+    # cannot take an abs-pre)
     stages = []
     for s in chain.stages:
         if isinstance(s, ResFIRGateStage):
-            stages += [s._res, s._fg._fir, s._fg._gate]
-            if s._fg._env is not None:
-                stages.append(_env_direct(s._fg))
-        elif isinstance(s, FIRGateStage):
+            stages.append(s._res)
+            s = s._fg
+        if isinstance(s, FIRGateStage):
             stages += [s._fir, s._gate]
             if s._env is not None:
-                stages.append(_env_direct(s))
+                stages.append(s._env)
         else:
             stages.append(s)
 
@@ -470,10 +396,9 @@ def chain_shard_body(chain, x: jnp.ndarray, axis_name: str = "time") -> jnp.ndar
             if s.nfft is not None:
                 check(s.pre is None, "abs-pre + overlap-save not supported")
                 _check_halo(t - 1, x.shape[-1])
-                x = overlap_save(x, s.h, s.nfft, history=hist, impl=s.impl,
-                                 fused=s.fused)
+                x = overlap_save(x, s.h, s.nfft, history=hist, impl=s.impl)
             else:
-                x = fir_direct(src, s.h, history=hist, fused=s.fused)
+                x = fir_direct(src, s.h, history=hist)
             if s.post_scale != 1.0:
                 x = x * s.post_scale
         elif isinstance(s, ResampleStage):
@@ -481,13 +406,12 @@ def chain_shard_body(chain, x: jnp.ndarray, axis_name: str = "time") -> jnp.ndar
             _check_halo(hl, x.shape[-1])
             ext = halo_left(x, hl, axis_name)
             x = resample_poly(x, s.up, s.down, h=s.h, zero_phase=False,
-                              history=ext[..., :hl], fused=s.fused)
+                              history=ext[..., :hl])
         elif isinstance(s, GateStage):
             x = gate_shard_body(x, s.nfft, s.hop, s.threshold_db,
                                 s.reduction_db, s.noise_frames,
                                 s.window_kind, s.impl, axis_name,
-                                release=s.release,
-                                fused=s.fused and s.release == 0.0)
+                                release=s.release)
         elif isinstance(s, StretchStage):
             x = stretch_shard_body(x, s.p, s.q, s.nfft, s.hop,
                                    s.window_kind, s.impl, axis_name)

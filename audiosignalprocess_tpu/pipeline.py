@@ -187,24 +187,15 @@ class FIRStage(Stage):
     impl: str = fft_ops.DEFAULT_IMPL
     pre: str | None = None  # "abs" for envelope-style rectification
     post_scale: float = 1.0
-    fused: bool = False  # route overlap-save through the fused Pallas kernel
 
     def _apply(self, x, history):
         if self.pre == "abs":
             x = jnp.abs(x)
-        fused = self.fused
-        if fused and jnp.dtype(x.dtype) == jnp.float64:
-            # TPU has no f64: the STAGE takes the jnp path instead of the
-            # fused kernel's clear error (interpret mode keeps f64 fused
-            # for CPU verification)
-            from audiosignalprocess_tpu.kernels.fft_kernel import _interpret
-
-            fused = _interpret()
         if self.nfft is not None:
             y = overlap_save(x, self.h, self.nfft, history=history,
-                             impl=self.impl, fused=fused)
+                             impl=self.impl)
         else:
-            y = fir_direct(x, self.h, history=history, fused=fused)
+            y = fir_direct(x, self.h, history=history)
         return y * self.post_scale if self.post_scale != 1.0 else y
 
     def full(self, x):
@@ -224,10 +215,9 @@ class FIRStage(Stage):
         return tail, y
 
 
-def EnvelopeStage(h, fused: bool = False) -> FIRStage:
+def EnvelopeStage(h) -> FIRStage:
     """Envelope follower as a stage: |x| -> FIR lowpass -> *pi/2."""
-    return FIRStage(h=np.asarray(h), pre="abs", post_scale=math.pi / 2.0,
-                    fused=fused)
+    return FIRStage(h=np.asarray(h), pre="abs", post_scale=math.pi / 2.0)
 
 
 @dataclass
@@ -239,7 +229,6 @@ class ResampleStage(Stage):
     up: int
     down: int
     h: np.ndarray | None = None
-    fused: bool = False  # route through the Pallas phase-matrix kernel
 
     def __post_init__(self):
         g = math.gcd(self.up, self.down)
@@ -266,14 +255,14 @@ class ResampleStage(Stage):
 
     def full(self, x):
         return resample_poly(x, self.up, self.down, h=self.h,
-                             zero_phase=False, fused=self.fused)
+                             zero_phase=False)
 
     def init_state(self, batch, block, dtype):
         return jnp.zeros(batch + (history_len(len(self.h), self.up, self.down),), dtype)
 
     def step(self, state, x):
         y = resample_poly(x, self.up, self.down, h=self.h, zero_phase=False,
-                          history=state, fused=self.fused)
+                          history=state)
         hn = state.shape[-1]
         tail = jnp.concatenate([state, x], axis=-1)[..., -hn:] if hn else state
         return tail, y
@@ -298,7 +287,6 @@ class GateStage(Stage):
     release: float = 0.0  # one-pole mask release smoothing along frames
     window_kind: str = "hann"
     impl: str = fft_ops.DEFAULT_IMPL
-    fused: bool = False  # fused Pallas gate kernel on the whole-file path
     input_latency: int = 0
 
     def __post_init__(self):
@@ -322,7 +310,6 @@ class GateStage(Stage):
         y = noise_gate(
             x, self.nfft, self.hop, self.threshold_db, self.reduction_db,
             self.noise_frames, self.release, self.window_kind, self.impl,
-            fused=self.fused,
         )
         pad = x.shape[-1] - y.shape[-1]
         return jnp.concatenate([y, jnp.zeros(x.shape[:-1] + (pad,), y.dtype)], axis=-1)
@@ -358,25 +345,10 @@ class GateStage(Stage):
 
     def init_state(self, batch, block, dtype):
         check(block % self.hop == 0 and block >= self.hop, 'guard failed: block % self.hop == 0 and block >= self.hop')
-        if self.fused and dtype != jnp.float64:
-            from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-            from audiosignalprocess_tpu.kernels.gate_kernel import (
-                gate_step_init_state,
-            )
-
-            if self.hop % _grid_split(self.nfft)[1] == 0:
-                return gate_step_init_state(batch, self.nfft, self.hop,
-                                            self.noise_frames, self.release,
-                                            dtype)
-            # hop narrower than the kernel's lane width: the fused step
-            # cannot frame in row space — fall through to the jnp carry
         d = self.nfft - self.hop
         nbins = self.nfft // 2 + 1
-        # the spectral FIFO is carried PLANAR (re/im): complex arrays in a
-        # jit entry signature break some TPU transports (the ring driver's
-        # per-block step; lax.scan hides the carry, but the contract is
-        # one carry format everywhere) — and planar is the TPU-native
-        # layout anyway
+        # the spectral FIFO is carried planar (re/im), the one carry
+        # format of every spectral stage in this module
         st = dict(
             in_tail=jnp.zeros(batch + (d,), dtype),
             fifo_r=jnp.zeros(batch + (self.noise_frames, nbins), dtype),
@@ -394,26 +366,6 @@ class GateStage(Stage):
         return st
 
     def step(self, state, x):
-        if self.fused and "gfifo_r" in state:
-            # fully-fused Pallas step: frame+FFT+mask+IFFT+OLA in one kernel,
-            # carries in grid layout (kernels/gate_kernel.gate_step_fused)
-            from audiosignalprocess_tpu.kernels.gate_kernel import (
-                gate_step_fused,
-            )
-
-            return gate_step_fused(
-                x, state, nfft=self.nfft, hop=self.hop,
-                threshold_db=self.threshold_db,
-                reduction_db=self.reduction_db,
-                noise_frames=self.noise_frames, release=self.release,
-                window_kind=self.window_kind,
-                input_latency=self.input_latency, latency=self.latency,
-                head_norm=self._head_norm(), const_norm=self._norm_const(),
-                eof_in=(None if self._eof_n is None
-                        else self.input_latency + self._eof_n),
-                tail_norm=(None if self._eof_n is None
-                           else self._tail_norm()),
-            )
         b = x.shape[-1]
         m = b // self.hop
         d = self.nfft - self.hop
@@ -496,14 +448,14 @@ class GateStage(Stage):
 
 @dataclass
 class FIRGateStage(Stage):
-    """Fused FIR -> spectral-gate composite stage (the headline 48 kHz
-    chain, BASELINE.json:2) whose STREAMING step runs as ONE Pallas
-    kernel per block (kernels/chain_kernel.fir_gate_step_fused: raw-tail
-    carry, overlap-save FIR recomputed in VMEM, gate step in-register)
-    and whose whole-file path is the fused chain kernel.  Equivalent to
-    FIRStage(h, nfft) -> GateStage(nfft, hop, ...); falls back to that
-    composition (jnp) for f64 or when hop is narrower than the kernel
-    lane width."""
+    """FIR -> spectral-gate composite stage (the headline 48 kHz chain,
+    BASELINE.json:2), optionally followed by an envelope demod.
+
+    Exactly ``FIRStage(h, nfft) -> GateStage(nfft, hop, ...)`` (->
+    ``EnvelopeStage(env_h)`` scaled by ``env_scale``): ``full``,
+    ``init_state`` and ``step`` are those sub-stages' paths, composed.
+    ``api.chain_file`` builds it, and a sharded chain splits it into the
+    same sub-stages (parallel/sharded.chain_shard_body)."""
 
     h: np.ndarray = None
     nfft: int = 1024
@@ -514,10 +466,9 @@ class FIRGateStage(Stage):
     release: float = 0.0
     window_kind: str = "hann"
     impl: str = fft_ops.DEFAULT_IMPL
-    fused: bool = True
     input_latency: int = 0
-    # optional envelope-demod tail folded into the SAME kernel (== a
-    # trailing EnvelopeStage(env_h): |y| -> FIR lowpass -> *env_scale)
+    # optional envelope-demod tail (== a trailing EnvelopeStage(env_h):
+    # |y| -> FIR lowpass -> *env_scale)
     env_h: np.ndarray | None = None
     env_scale: float = math.pi / 2.0
 
@@ -527,25 +478,18 @@ class FIRGateStage(Stage):
         check(self.nfft % self.hop == 0, "nfft must be a multiple of hop")
         check(self.nfft > len(self.h) - 1, "nfft must exceed taps-1")
         self.latency = (self.nfft - self.hop) + self.noise_frames * self.hop
-        # forward fused: the decomposed sub-stages ARE the execution path
-        # when a sharded chain splits this composite (chain_shard_body),
-        # and must run the same Pallas kernels as the whole-stage paths
-        self._fir = FIRStage(h=self.h, nfft=self.nfft, impl=self.impl,
-                             fused=self.fused)
+        self._fir = FIRStage(h=self.h, nfft=self.nfft, impl=self.impl)
         self._gate = GateStage(
             nfft=self.nfft, hop=self.hop, threshold_db=self.threshold_db,
             reduction_db=self.reduction_db, noise_frames=self.noise_frames,
             release=self.release, window_kind=self.window_kind,
-            impl=self.impl, fused=self.fused)
+            impl=self.impl)
         self._env = None
         if self.env_h is not None:
             self.env_h = np.asarray(self.env_h, np.float64)
-            # direct form (== EnvelopeStage): valid for ANY tap count,
-            # unlike overlap-save whose fused kernel needs taps-1 <=
-            # nfft-n2 — this is the fallback for exactly those taps
+            # direct form (== EnvelopeStage): valid for any tap count
             self._env = FIRStage(h=self.env_h, pre="abs",
-                                 post_scale=self.env_scale, impl=self.impl,
-                                 fused=self.fused)
+                                 post_scale=self.env_scale, impl=self.impl)
 
     def configure(self, input_latency: int) -> int:
         check(input_latency % self.hop == 0, f"upstream latency {input_latency} not a multiple of hop={self.hop}")
@@ -555,33 +499,6 @@ class FIRGateStage(Stage):
         if self._env is not None:
             self._env.configure(input_latency + self.latency)
         return input_latency + self.latency
-
-    def _env_fits(self) -> bool:
-        """Envelope taps fit the fused step kernel's overlap-save: the
-        tail carry needs >= 1 row (taps >= 2) and the valid-row slice
-        must dodge the Mosaic unaligned-small-slice crash class (>= 3
-        valid rows, or an 8-aligned row offset — kernel guard /
-        docs/KERNELS.md constraint 7).  Outside that, the stage composes
-        [_fir, _gate, _env] instead (same numerics)."""
-        if self.env_h is None:
-            return True
-        return self._os_rows_ok(len(self.env_h)) and len(self.env_h) >= 2
-
-    def _os_rows_ok(self, taps: int) -> bool:
-        from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-
-        n2 = _grid_split(self.nfft)[1]
-        e0r = -(-(taps - 1) // n2)
-        br = self.nfft // n2 - e0r
-        return br >= 3 or (br >= 1 and e0r % 8 == 0)
-
-    def _fused_ok(self, dtype) -> bool:
-        from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-
-        return (self.fused and dtype != jnp.float64
-                and self.hop % _grid_split(self.nfft)[1] == 0
-                and self._os_rows_ok(len(self.h))
-                and self._env_fits())
 
     def tail_width(self, t):
         return t + self.nfft - 1  # see GateStage.tail_width
@@ -596,33 +513,11 @@ class FIRGateStage(Stage):
         self._eof_n = None
 
     def full(self, x):
-        if self._fused_ok(x.dtype):
-            from audiosignalprocess_tpu.kernels.chain_kernel import (
-                fir_noise_gate_fused,
-            )
-
-            y = fir_noise_gate_fused(
-                x, self.h, self.nfft, self.hop, self.threshold_db,
-                self.reduction_db, self.noise_frames, self.release,
-                self.window_kind)
-            pad = x.shape[-1] - y.shape[-1]
-            y = jnp.concatenate(
-                [y, jnp.zeros(x.shape[:-1] + (pad,), y.dtype)], axis=-1)
-        else:
-            y = self._gate.full(self._fir.full(x))
+        y = self._gate.full(self._fir.full(x))
         return y if self._env is None else self._env.full(y)
 
     def init_state(self, batch, block, dtype):
         check(block % self.hop == 0 and block >= self.hop, f"block {block} not a multiple of hop={self.hop}")
-        if self._fused_ok(dtype):
-            from audiosignalprocess_tpu.kernels.chain_kernel import (
-                fir_gate_step_init_state,
-            )
-
-            return fir_gate_step_init_state(
-                batch, self.nfft, self.hop, len(self.h), self.noise_frames,
-                self.release, dtype,
-                env_taps=0 if self._env is None else len(self.env_h))
         st = [self._fir.init_state(batch, block, dtype),
               self._gate.init_state(batch, block, dtype)]
         if self._env is not None:
@@ -630,28 +525,6 @@ class FIRGateStage(Stage):
         return st
 
     def step(self, state, x):
-        if isinstance(state, dict) and "gfifo_r" in state:
-            from audiosignalprocess_tpu.kernels.chain_kernel import (
-                fir_gate_step_fused,
-            )
-
-            return fir_gate_step_fused(
-                x, state, self.h, nfft=self.nfft, hop=self.hop,
-                threshold_db=self.threshold_db,
-                reduction_db=self.reduction_db,
-                noise_frames=self.noise_frames, release=self.release,
-                window_kind=self.window_kind,
-                input_latency=self.input_latency, latency=self.latency,
-                head_norm=_wola_head_norm(self.nfft, self.hop,
-                                          self.window_kind),
-                const_norm=_wola_const_norm(self.nfft, self.hop,
-                                            self.window_kind),
-                env_h=self.env_h if self._env is not None else None,
-                env_scale=self.env_scale,
-                eof_in=(None if self._eof_n is None
-                        else self.input_latency + self._eof_n),
-                tail_norm=(None if self._eof_n is None else _wola_tail_norm(
-                    self.nfft, self.hop, self.window_kind)))
         sf, sg = state[0], state[1]
         sf, y = self._fir.step(sf, x)
         sg, y = self._gate.step(sg, y)
@@ -663,21 +536,12 @@ class FIRGateStage(Stage):
 
 @dataclass
 class ResFIRGateStage(Stage):
-    """Fused resample -> FIR -> spectral-gate composite (the config-5
-    front half, BASELINE.json:11) whose STREAMING step runs as ONE
-    Pallas kernel per block (kernels/res_chain_kernel.
-    res_fir_gate_step_fused: supercycle phase matmuls feed the shared
-    FIR->gate step body; the resampled signal never round-trips HBM)
-    and whose whole-file path is the fused res_chain kernel.  Equivalent
-    to ResampleStage(up, down) -> FIRGateStage(h, nfft, hop, ...); falls
-    back to that composition (separate kernels) for f64, misaligned
-    blocks, or hop narrower than the kernel lane width.
+    """Resample -> FIR -> spectral-gate composite (the config-5 front half,
+    BASELINE.json:11), optionally followed by an envelope demod.
 
-    Note on hardware choice: on the time-shared bench chip the dense
-    phase-matrix resampler is MXU-bound and the two-kernel split is
-    faster (docs/PERF.md res_chain vs res_two) — this stage is the
-    one-kernel-per-block design point for full-speed hardware.
-    """
+    Exactly ``ResampleStage(up, down) -> FIRGateStage(h, nfft, hop, ...)``:
+    ``full``, ``init_state`` and ``step`` are those sub-stages' paths,
+    composed."""
 
     up: int = 160
     down: int = 147
@@ -691,11 +555,9 @@ class ResFIRGateStage(Stage):
     release: float = 0.0
     window_kind: str = "hann"
     impl: str = fft_ops.DEFAULT_IMPL
-    fused: bool = True
     input_latency: int = 0
-    # optional envelope-demod tail folded into the SAME kernel: with it,
-    # the ENTIRE config-5 chain (resample + FIR + gate + envelope,
-    # BASELINE.json:11) is ONE Pallas kernel per streaming block
+    # optional envelope-demod tail (see FIRGateStage): with it the stage
+    # is the whole config-5 chain (resample + FIR + gate + envelope)
     env_h: np.ndarray | None = None
     env_scale: float = math.pi / 2.0
 
@@ -714,7 +576,7 @@ class ResFIRGateStage(Stage):
             h=self.h, nfft=self.nfft, hop=self.hop,
             threshold_db=self.threshold_db, reduction_db=self.reduction_db,
             noise_frames=self.noise_frames, release=self.release,
-            window_kind=self.window_kind, impl=self.impl, fused=self.fused,
+            window_kind=self.window_kind, impl=self.impl,
             env_h=self.env_h, env_scale=self.env_scale)
         self.latency = self._fg.latency  # output (resampled) domain
 
@@ -743,53 +605,10 @@ class ResFIRGateStage(Stage):
         self._fg.clear_eof()
         self._eof_n = None
 
-    def _fused_ok(self, dtype, block: int | None = None) -> bool:
-        from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-        from audiosignalprocess_tpu.kernels.res_chain_kernel import (
-            res_step_geometry,
-        )
-
-        if not (self.fused and dtype != jnp.float64
-                and self.hop % _grid_split(self.nfft)[1] == 0
-                and self._fg._os_rows_ok(len(self.h))
-                and self._fg._env_fits()):
-            return False
-        if block is None:
-            return True
-        b_in, _ = res_step_geometry(self.up, self.down, self.nfft, self.hop)
-        return block % b_in == 0
-
     def full(self, x):
-        n_out = -(-x.shape[-1] * self.up // self.down)
-        from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-
-        if self._fused_ok(x.dtype) and n_out % _grid_split(self.nfft)[1] == 0:
-            from audiosignalprocess_tpu.kernels.res_chain_kernel import (
-                resample_fir_gate_fused,
-            )
-
-            y = resample_fir_gate_fused(
-                x, self.up, self.down, self.h, self.h_res, self.nfft,
-                self.hop, self.threshold_db, self.reduction_db,
-                self.noise_frames, self.release, self.window_kind)
-            pad = n_out - y.shape[-1]
-            if pad > 0:
-                y = jnp.concatenate(
-                    [y, jnp.zeros(x.shape[:-1] + (pad,), y.dtype)], axis=-1)
-            y = y[..., :n_out]
-            return y if self._fg._env is None else self._fg._env.full(y)
         return self._fg.full(self._res.full(x))
 
     def init_state(self, batch, block, dtype):
-        if self._fused_ok(dtype, block):
-            from audiosignalprocess_tpu.kernels.res_chain_kernel import (
-                res_fir_gate_step_init_state,
-            )
-
-            return res_fir_gate_step_init_state(
-                batch, self.up, self.down, self.h_res, self.nfft, self.hop,
-                len(self.h), self.noise_frames, self.release, dtype,
-                env_taps=0 if self.env_h is None else len(self.env_h))
         # name the INPUT-domain quantum in the error: the inner stages
         # would otherwise report the RESAMPLED block ("block 4800 not a
         # multiple of hop=256" for a user who passed 4410)
@@ -804,29 +623,6 @@ class ResFIRGateStage(Stage):
                 self._fg.init_state(batch, self._res.out_block(block), dtype)]
 
     def step(self, state, x):
-        if isinstance(state, dict) and "res_hist" in state:
-            from audiosignalprocess_tpu.kernels.res_chain_kernel import (
-                res_fir_gate_step_fused,
-            )
-
-            return res_fir_gate_step_fused(
-                x, state, self.up, self.down, self.h, self.h_res,
-                nfft=self.nfft, hop=self.hop,
-                threshold_db=self.threshold_db,
-                reduction_db=self.reduction_db,
-                noise_frames=self.noise_frames, release=self.release,
-                window_kind=self.window_kind,
-                input_latency=self.input_latency, latency=self.latency,
-                head_norm=_wola_head_norm(self.nfft, self.hop,
-                                          self.window_kind),
-                const_norm=_wola_const_norm(self.nfft, self.hop,
-                                            self.window_kind),
-                env_h=self.env_h, env_scale=self.env_scale,
-                eof_in=(None if self._eof_n is None
-                        else self.input_latency
-                        + self._res.out_len(self._eof_n)),
-                tail_norm=(None if self._eof_n is None else _wola_tail_norm(
-                    self.nfft, self.hop, self.window_kind)))
         sr_, sf_ = state
         sr_, y = self._res.step(sr_, x)
         sf_, y = self._fg.step(sf_, y)
@@ -838,8 +634,8 @@ class StretchStage(Stage):
     """Streaming phase-vocoder time stretch at the EXACT rational rate
     p/q (analysis frames advanced per synthesis frame; p > q speeds up).
 
-    TPU-native streaming design — all static shapes, no dynamic control
-    flow (SURVEY.md §2 row 14):
+    Streaming design — all static shapes, no dynamic control flow
+    (SURVEY.md §2 row 14):
 
     - Output frame i samples analysis position t_i = i*p/q.  With block
       frames m = block/hop such that m*q % p == 0, every block emits
@@ -866,7 +662,6 @@ class StretchStage(Stage):
     hop: int = 256
     window_kind: str = "hann"
     impl: str = fft_ops.DEFAULT_IMPL
-    fused: bool = False  # fused Pallas step kernel on the streaming path
     input_latency: int = 0
 
     def __post_init__(self):
@@ -975,19 +770,7 @@ class StretchStage(Stage):
         d = self.nfft - self.hop
         nbins = self.nfft // 2 + 1
         depth, _, _ = self._slots(m)
-        if self.fused and dtype != jnp.float64:
-            from audiosignalprocess_tpu.kernels.fft_kernel import _grid_split
-            from audiosignalprocess_tpu.kernels.stretch_kernel import (
-                stretch_step_init_state,
-            )
-
-            if self.hop % _grid_split(self.nfft)[1] == 0:
-                return stretch_step_init_state(batch, self.nfft, self.hop,
-                                               depth, dtype)
-            # hop narrower than the kernel's lane width: fall through to
-            # the jnp carry (same fallback rule as GateStage)
-        # everything planar (re/im): complex carries break some TPU
-        # transports' jit entry signatures (see GateStage.init_state)
+        # every carry planar (re/im), like GateStage's
         return dict(
             in_tail=jnp.zeros(batch + (d,), dtype),
             fifo_r=jnp.zeros(batch + (depth, nbins), dtype),
@@ -1010,25 +793,6 @@ class StretchStage(Stage):
         d = self.nfft - self.hop
         dtype = x.dtype
         depth, slots, fr = self._slots(m)
-        if self.fused and "gz0r" in state:
-            # fully-fused Pallas step: frame+FFT+rotor phase+IFFT+OLA in
-            # one kernel (kernels/stretch_kernel.stretch_step_fused)
-            from audiosignalprocess_tpu.kernels.stretch_kernel import (
-                stretch_step_fused,
-            )
-
-            return stretch_step_fused(
-                x, state, nfft=self.nfft, hop=self.hop, m=m, mo=mo,
-                depth=depth, slots=slots, fracs=fr, n_skip=self.n_skip,
-                off=self.off, window_kind=self.window_kind,
-                head_norm=_wola_head_norm(self.nfft, self.hop,
-                                          self.window_kind),
-                const_norm=_wola_const_norm(self.nfft, self.hop,
-                                            self.window_kind),
-                eof_frames_out=self._eof_frames_out(),
-                tail_norm=(None if self._eof_n is None else _wola_tail_norm(
-                    self.nfft, self.hop, self.window_kind)),
-            )
         w = jnp.asarray(window_np(self.window_kind, self.nfft), dtype)
         ext = jnp.concatenate([state["in_tail"], x], axis=-1)
         frames = frame_op(ext, self.nfft, self.hop)  # (..., m, nfft)

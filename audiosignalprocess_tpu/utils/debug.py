@@ -1,20 +1,15 @@
 """Debug / numerical-sanity subsystem (SURVEY.md §5 "race detection /
 sanitizers" row).
 
-The reference (single-threaded C) has none of this; the TPU-native
+The reference (single-threaded C) has none of this; the JAX
 equivalents are:
 - NaN/Inf trapping in jit-compiled code (``enable_nan_checks``),
-- Pallas interpreter mode for kernel debugging (``interpret_kernels``),
-- deterministic collectives by construction (XLA collectives over
-  shard_map are schedule-deterministic; there is no NCCL-style
-  nondeterministic reduction path to guard against),
 - an SNR assertion helper for pinning any device path to the oracle.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 
 import jax
 import numpy as np
@@ -37,30 +32,6 @@ def nan_checks():
     finally:
         jax.config.update("jax_debug_nans", prev_nans)
         jax.config.update("jax_debug_infs", prev_infs)
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Force every framework Pallas kernel through the interpreter (plain
-    XLA ops) for debugging — works on any backend.
-
-    The flag is read at TRACE time, so functions already jit-compiled
-    keep their cached compiled kernels; the jit caches are cleared on
-    entry and exit so everything re-traces under (and after) the
-    interpreter instead of silently running the stale compiled path."""
-    import jax
-
-    old = os.environ.get("ASP_INTERPRET_PALLAS")
-    os.environ["ASP_INTERPRET_PALLAS"] = "1"
-    jax.clear_caches()
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("ASP_INTERPRET_PALLAS", None)
-        else:
-            os.environ["ASP_INTERPRET_PALLAS"] = old
-        jax.clear_caches()
 
 
 def assert_snr(ref, test, min_db: float = 60.0, what: str = "output") -> float:

@@ -1,8 +1,10 @@
-"""Metrics: SNR parity checks + TPU roofline model (SURVEY.md §6).
+"""Metrics: SNR parity checks + the device peak table for roofline shares
+(SURVEY.md §6).
 
-The roofline targets come from BASELINE.json:5 — per-chip FFT kernel
-throughput >= 80% of the HBM-bandwidth bound; batched small-N FFTs are
-memory-bound, so speed-of-light = move each sample in and out of HBM once.
+Batched small-N FFTs and the audio chains are memory-bound, so the
+speed-of-light bound is moving each sample in and out of device memory
+once; ``roofline_time_s`` divides those bytes by the device's published
+memory bandwidth.
 """
 
 from __future__ import annotations
@@ -30,35 +32,54 @@ def snr_db(ref, test) -> float:
     return 10.0 * math.log10(p_sig / p_err)
 
 
-@dataclass
-class ChipSpec:
-    """Per-chip hardware ceilings used for roofline accounting."""
+@dataclass(frozen=True)
+class DeviceSpec:
+    """Published per-device ceilings used for roofline shares (dense
+    rates, no sparsity; at the card's full power limit)."""
 
     name: str
-    hbm_gbps: float  # HBM bandwidth, GB/s
-    f32_tflops: float  # MXU f32 peak
-    bf16_tflops: float  # MXU bf16 peak
+    hbm_gbps: float  # device-memory bandwidth, GB/s
+    f32_tflops: float  # float32 outside the tensor cores
+    tf32_tflops: float
+    bf16_tflops: float
+    source: str
 
 
-# TPU v5e (v5 lite) public specs: 819 GB/s HBM, 197 TFLOP/s bf16 (f32 ~49).
-TPU_V5E = ChipSpec(name="tpu-v5e", hbm_gbps=819.0, f32_tflops=49.0, bf16_tflops=197.0)
+# Keyed by ``jax.Device.device_kind``.  A device missing here is an error:
+# a roofline share against an assumed peak would be a made-up number.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": DeviceSpec(
+        name="H100 SXM5 80GB", hbm_gbps=3350.0, f32_tflops=67.0,
+        tf32_tflops=495.0, bf16_tflops=989.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5 column"),
+    "NVIDIA H100 PCIe": DeviceSpec(
+        name="H100 PCIe 80GB", hbm_gbps=2000.0, f32_tflops=51.0,
+        tf32_tflops=378.0, bf16_tflops=756.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, PCIe column"),
+}
 
 
-def detect_chip() -> ChipSpec:
-    import jax
+def device_spec(device_kind: str | None = None) -> DeviceSpec:
+    """Peaks of ``device_kind`` (default: ``jax.devices()[0]``'s).
+    Raises ``KeyError`` for a device the table does not hold."""
+    if device_kind is None:
+        import jax
 
-    kind = jax.devices()[0].device_kind.lower()
-    if "v5 lite" in kind or "v5e" in kind:
-        return TPU_V5E
-    return TPU_V5E  # default model; only affects the roofline denominator
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}") from None
 
 
 def fft_roofline_bytes(batch: int, n: int, dtype_bytes: int = 4,
                        complex_io: bool = False) -> int:
-    """Minimum HBM traffic of a batched FFT: read + write each element once."""
+    """Minimum device-memory traffic of a batched FFT: read + write each
+    element once."""
     width = 2 * dtype_bytes if complex_io else dtype_bytes
     return 2 * batch * n * width
 
 
-def roofline_time_s(bytes_moved: int, chip: ChipSpec) -> float:
-    return bytes_moved / (chip.hbm_gbps * 1e9)
+def roofline_time_s(bytes_moved: int, spec: DeviceSpec) -> float:
+    return bytes_moved / (spec.hbm_gbps * 1e9)

@@ -1,7 +1,7 @@
 """Tracing/profiling (SURVEY.md §5): jax.profiler + named scopes + a
 JSON-lines block logger for the streaming pipeline.
 
-The reference (single-threaded C) has no tracing; this is the TPU-native
+The reference (single-threaded C) has no tracing; this is the JAX
 equivalent: XProf/Perfetto traces via ``jax.profiler.trace``, per-stage
 ``named_scope`` annotation, and structured per-block throughput records.
 """
@@ -17,7 +17,7 @@ import jax
 
 named_scope = jax.named_scope
 
-log = logging.getLogger("asp_tpu")
+log = logging.getLogger("asp")
 
 
 @contextlib.contextmanager

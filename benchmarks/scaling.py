@@ -1,17 +1,17 @@
 #!/usr/bin/env python
-"""Device/host scaling harness (BASELINE.json:2,5: samples/s at 1 chip,
-1 host, N>=2 hosts, with >=90% linear scaling 1->4 hosts as the target).
+"""Device scaling harness (BASELINE.json:2,5: samples/s at 1 device and
+N devices, with >=90% linear scaling 1->4 as the target).
 
-Runs the sharded config-5-style chain over (channel, time) meshes of
-1, 2, 4, ... devices and reports samples/s plus scaling efficiency vs
-the 1-device run.  On a pod slice this measures real ICI scaling; on a
-single host it sweeps the local chips; with
+Runs the sharded config-5-style chain over (1, d) (channel, time) meshes
+of d = 1, 2, 4, ... devices and reports samples/s plus scaling efficiency
+vs the first size.  On a host with several GPUs this measures NCCL
+collectives over NVLink; with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``
 it validates the mechanics on virtual devices (functional, not a perf
-claim).  Multi-host: launch one process per host via
-tools/launch_multihost.py with ``--coordinator``.
+claim: every row names the platform it ran on).  Several processes:
+launch one per host via tools/launch_multihost.py with ``--coordinator``.
 
-Timing uses the on-device-loop + scalar-checksum method (see bench.py).
+Each timed call ends in ``block_until_ready``; the first call compiles.
 """
 
 import sys, os
@@ -27,14 +27,11 @@ import numpy as np
 
 def bench_mesh(ndev: int, channels: int, per_shard: int, iters: int = 8):
     import jax
-    import jax.numpy as jnp
-    from jax import lax
 
     from audiosignalprocess_tpu.cpu_ref import oracle
     from audiosignalprocess_tpu.parallel.mesh import make_mesh, shard_audio
-    from audiosignalprocess_tpu.parallel.sharded import chain_shard_body
+    from audiosignalprocess_tpu.parallel.sharded import sharded_chain
     from audiosignalprocess_tpu.pipeline import Chain, FIRStage, GateStage, ResampleStage
-    from jax.sharding import PartitionSpec as P
 
     chain = Chain([
         ResampleStage(up=160, down=147),
@@ -45,38 +42,15 @@ def bench_mesh(ndev: int, channels: int, per_shard: int, iters: int = 8):
     mesh = make_mesh(channel=1, time=ndev)
     n = per_shard * ndev
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((channels, n)).astype(np.float32)
-
-    spec = P("channel", "time")
-
-    @jax.jit
-    def loop(v):
-        def body(_, c):
-            y = jax.shard_map(
-                lambda u: chain_shard_body(chain, u),
-                mesh=mesh, in_specs=(spec,), out_specs=spec,
-            )(c)
-            m = min(y.shape[-1], c.shape[-1])
-            pad = c.shape[-1] - m
-            yp = y[:, :m]
-            if pad:
-                yp = jnp.pad(yp, ((0, 0), (0, pad)))
-            return c + 1e-12 * yp
-
-        return jnp.sum(jnp.abs(lax.fori_loop(0, iters, body, v)[:, :128]))
-
-    # device-resident inputs BEFORE the timed window: the host multiply
-    # and host->device transfer must not be inside it (their cost grows
-    # with n = per_shard*ndev, which would distort the scaling curve);
-    # distinct values per rep still defeat RPC-level result caching
-    xs = [shard_audio(x * (1.0 + 1e-6 * r), mesh) for r in range(3)]
-    for v in xs:
-        v.block_until_ready()
-    float(loop(xs[0]))  # compile + warm
+    x = shard_audio(rng.standard_normal((channels, n)).astype(np.float32),
+                    mesh)
+    fn = sharded_chain(mesh, chain)
+    jax.block_until_ready(fn(x))  # compile + warm
     best = np.inf
-    for r in range(2):
+    for _ in range(2):
         t0 = time.perf_counter()
-        float(loop(xs[r + 1]))
+        for _ in range(iters):
+            jax.block_until_ready(fn(x))
         best = min(best, (time.perf_counter() - t0) / iters)
     return channels * n / best
 
@@ -85,8 +59,9 @@ def main():
     import jax
 
     from audiosignalprocess_tpu.parallel.launch import initialize
+    from tools.common import device_record
 
-    initialize()  # honors ASP_FORCE_PLATFORM=cpu for simulated sweeps
+    initialize()
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--channels", type=int, default=16)
@@ -104,7 +79,7 @@ def main():
         sizes = [n for n in (1, 2, 4, 8, 16, 32) if n <= ndev_all]
     base = None
     base_nd = None
-    for nd in sizes:  # stream each row (slow relayed compiles)
+    for nd in sizes:  # print each row as it completes
         sps = bench_mesh(nd, args.channels, args.per_shard, args.iters)
         if base is None:
             base, base_nd = sps, nd
@@ -113,7 +88,7 @@ def main():
         # reports a meaningful 4->8 efficiency instead of 1/nd artifacts
         eff = sps / ((base / base_nd) * nd)
         r = dict(devices=nd, samples_per_s=round(sps, 1),
-                 scaling_eff=round(eff, 3))
+                 scaling_eff=round(eff, 3), device=device_record())
         if args.json:
             print(json.dumps(r), flush=True)
         else:

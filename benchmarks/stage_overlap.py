@@ -12,16 +12,14 @@ them within the step.
 Variant B (skewed): the same scan, but stage2 consumes stage1's output
 of the PREVIOUS block (carried).  Same total work and identical output
 stream (delayed one block); the two stages of one step are now
-data-independent, so XLA's scheduler is free to interleave stage1's
-MXU-heavy FFT work with stage2's VPU work.
+data-independent, so XLA's scheduler is free to run stage1's FFT work
+beside stage2's elementwise work.
 
-On a single TPU core both variants issue the same ops to the same
-functional units; the skew can only help to the extent the scheduler
-finds MXU/VPU co-issue or DMA overlap it could not find inside the
-serialized step.  Measuring both (on-device fori loop + checksum, see
-bench.py) answers the survey question empirically; the parity check
-pins that the skewed stream equals the sequential one shifted by one
-block.  Results: docs/PERF.md "Stage overlap".
+The skew can only help to the extent the scheduler finds concurrency it
+could not find inside the serialized step.  Measuring both (each call
+ends in ``block_until_ready``) answers the survey question empirically;
+the parity check pins that the skewed stream equals the sequential one
+shifted by one block.
 
 Usage: python benchmarks/stage_overlap.py [--json] [--channels 64]
 """
@@ -30,7 +28,7 @@ import sys, os
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tools import common as _common  # noqa: E402,F401  (ASP_FORCE_PLATFORM)
+from tools import common  # noqa: E402  (sets the compile cache)
 
 from audiosignalprocess_tpu.utils.validate import check
 
@@ -87,25 +85,14 @@ def build(channels, block, n):
 
 def measure(fn, x, iters=8):
     import jax
-    import jax.numpy as jnp
-    from jax import lax
 
-    @jax.jit
-    def loop(v):
-        def body(_, c):
-            y = fn(c)
-            m = min(y.shape[-1], c.shape[-1])
-            pad = c.shape[-1] - m
-            yp = jnp.pad(y[..., :m], ((0, 0), (0, pad))) if pad else y[..., :m]
-            return c + 1e-12 * yp
-
-        return jnp.sum(jnp.abs(lax.fori_loop(0, iters, body, v)[:, :128]))
-
-    float(loop(x))
+    step = jax.jit(fn)
+    jax.block_until_ready(step(x))  # compile + warm
     best = np.inf
-    for r in range(3):
+    for _ in range(3):
         t0 = time.perf_counter()
-        float(loop(x * (1.0 + 1e-6 * (r + 1))))
+        for _ in range(iters):
+            jax.block_until_ready(step(x))
         best = min(best, (time.perf_counter() - t0) / iters)
     return best
 
@@ -138,7 +125,7 @@ def main():
 
     t_seq = measure(seq, x)
     t_skew = measure(skew, x)
-    rec = dict(backend=jax.default_backend(), channels=args.channels,
+    rec = dict(device=common.device_record(), channels=args.channels,
                block=args.block, blocks=args.blocks,
                seq_ms=round(t_seq * 1e3, 3), skewed_ms=round(t_skew * 1e3, 3),
                speedup=round(t_seq / t_skew, 3), parity_max_err=float(err))

@@ -22,9 +22,10 @@ def rng():
     return np.random.default_rng(17)
 
 
-pytestmark = pytest.mark.skipif(
-    jax.device_count() < 8, reason="needs 8 (virtual) devices"
-)
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if jax.device_count() < 8:
+        pytest.skip("needs 8 (virtual) devices")
 
 MESHES = ((1, 8), (8, 1), (2, 4), (4, 2))
 
@@ -107,7 +108,7 @@ class TestShardedChain:
 
     def test_composite_stage_matches_components(self, rng):
         """FIRGateStage/ResFIRGateStage shard as their exact component
-        composition (same halo/psum structure as the unfused chain)."""
+        composition (same halo/psum structure as the plain chain)."""
         from audiosignalprocess_tpu.pipeline import ResFIRGateStage
 
         mesh = make_mesh(channel=2, time=4)
@@ -128,10 +129,8 @@ class TestShardedChain:
         np.testing.assert_allclose(out, ref, rtol=1e-7, atol=1e-9)
 
     def test_composite_sharded_fused_f32(self, rng):
-        """f32 sharded composite: the decomposed sub-stages inherit
-        fused=True (round-3 fix — they silently ran jnp before), so the
-        per-shard FIR and gate run their Pallas kernels.  Matches the
-        whole-file composite to the streaming-reassociation bound."""
+        """f32 sharded composite matches the whole-file composite to the
+        streaming-reassociation bound."""
         from audiosignalprocess_tpu.pipeline import ResFIRGateStage
 
         mesh = make_mesh(channel=2, time=4)
@@ -142,10 +141,8 @@ class TestShardedChain:
         ).astype(np.float32)
         h = oracle.design_fir(64, 0.3)
         comp = Chain([ResFIRGateStage(up=160, down=147, h=h, nfft=1024,
-                                      hop=256, noise_frames=4, fused=True)])
+                                      hop=256, noise_frames=4)])
         comp.build()
-        # the forwarding contract itself: decomposed sub-stages are fused
-        assert comp.stages[0]._fg._fir.fused and comp.stages[0]._fg._gate.fused
         ref = np.asarray(jax.jit(comp.full)(jnp.asarray(x)))
         out = np.asarray(sharded_chain(mesh, comp)(shard_audio(x, mesh)))
         m = min(ref.shape[-1], out.shape[-1])
@@ -153,8 +150,8 @@ class TestShardedChain:
                              out[..., :m].astype(np.float64) + 1e-30) >= 80.0
 
     def test_composite_env_stage_matches_components(self, rng):
-        """A folded envelope tail shards as the direct-FIR form (|x| halo
-        + MAC): the full config-5 composite == its four components."""
+        """An appended envelope tail shards as the direct-FIR form (|x|
+        halo + FIR): the full config-5 composite == its four components."""
         from audiosignalprocess_tpu.pipeline import (
             EnvelopeStage, ResFIRGateStage,
         )
@@ -252,12 +249,14 @@ class TestHaloEdgeCases:
 
 
 class TestFusedSharded:
+    """f32 sharded bodies vs the whole-file f32 op and the f64 oracle."""
+
     def test_overlap_save_fused_per_shard(self, rng):
-        """Fused Pallas kernel inside shard_map (halo feeds its history)."""
+        """f32 overlap-save inside shard_map (halo feeds its history)."""
         mesh = make_mesh(channel=2, time=4)
         h = oracle.design_fir(64, 0.25)
         x = rng.standard_normal((8, 8192)).astype(np.float32)
-        out = np.asarray(sharded_overlap_save(mesh, h, 1024, fused=True)(
+        out = np.asarray(sharded_overlap_save(mesh, h, 1024)(
             shard_audio(x, mesh)))
         ref = np.stack([oracle.fir_direct(x[i].astype(np.float64), h)
                         for i in range(8)])
@@ -265,16 +264,12 @@ class TestFusedSharded:
 
     @pytest.mark.parametrize("ch,tm", ((1, 8), (2, 4), (4, 2), (8, 1)))
     def test_gate_fused_time_sharded(self, rng, ch, tm):
-        """Fused Pallas gate per TIME shard (BASELINE.json:5 Pallas inner
-        loops on the sharded pod path): the kernel runs per shard with the
-        cross-shard constructs in XLA around it — psum'd noise floor, EOF
-        frame validity, OLA spill exchange, global-position WOLA norm.
-        Matches the whole-file fused gate (bitwise on channel-only
-        meshes; OLA re-association at shard boundaries otherwise) and the
-        f64 oracle."""
-        from audiosignalprocess_tpu.kernels.gate_kernel import (
-            noise_gate_fused,
-        )
+        """f32 gate per time shard with the cross-shard constructs —
+        psum'd noise floor, EOF frame validity, OLA spill exchange,
+        global-position WOLA norm.  Matches the one-device run bitwise on
+        channel-only meshes, the whole-file f32 gate (OLA re-association
+        at shard boundaries) and the f64 oracle."""
+        from audiosignalprocess_tpu.effects.noise_gate import noise_gate
 
         mesh = make_mesh(channel=ch, time=tm)
         n = 8192 * 4
@@ -283,19 +278,20 @@ class TestFusedSharded:
         x = (0.01 * rng.standard_normal((8, n))).astype(np.float32)
         x += np.where((t > 0.2) & (t < 0.5),
                       np.sin(2 * np.pi * 440.0 * t), 0.0).astype(np.float32)
-        out = np.asarray(sharded_noise_gate(mesh, noise_frames=8, fused=True)(
+        out = np.asarray(sharded_noise_gate(mesh, noise_frames=8)(
             shard_audio(x, mesh)))
-        import jax
-
-        ref = np.asarray(jax.jit(lambda v: noise_gate_fused(
+        ref = np.asarray(jax.jit(lambda v: noise_gate(
             v, 1024, 256, 6.0, 60.0, 8, 0.0, "hann"))(jnp.asarray(x)))
         ref = np.concatenate(
             [ref, np.zeros((8, n - ref.shape[-1]), np.float32)], axis=-1)
         if tm == 1:
-            np.testing.assert_array_equal(out, ref)
-        else:
-            assert oracle.snr_db(ref.astype(np.float64) + 1e-30,
-                                 out.astype(np.float64) + 1e-30) >= 120.0
+            # channel sharding alone changes no bit of the one-device run
+            one = make_mesh(channel=1, time=1)
+            np.testing.assert_array_equal(
+                out, np.asarray(sharded_noise_gate(one, noise_frames=8)(
+                    shard_audio(x, one))))
+        assert oracle.snr_db(ref.astype(np.float64) + 1e-30,
+                             out.astype(np.float64) + 1e-30) >= 120.0
         ref_o = oracle.noise_gate(x.astype(np.float64), 1024, 256,
                                   noise_frames=8)
         m = min(ref_o.shape[-1], n)
@@ -304,21 +300,22 @@ class TestFusedSharded:
 
 
     def test_gate_fused_short_shards(self, rng):
-        """Shards SHORTER than the floor prologue (l < nfft +
-        (noise_frames-1)*hop) must still run the fused kernel: the
-        prologue is sliced from the halo-extended signal, whose samples
-        for shard 0 are exactly the global signal's first samples.
-        Round-3 review regression: an x-based slice hard-errored here
-        while the jnp body (and round 2's silent fallback) worked."""
+        """Shards SHORTER than the noise-floor span (l < nfft +
+        (noise_frames-1)*hop) still gate == the whole-file f32 gate: the
+        floor frames of shard 0 come from its halo-extended signal."""
+        from audiosignalprocess_tpu.effects.noise_gate import noise_gate
+
         mesh = make_mesh(channel=1, time=8)
         n = 16384  # l = 2048 < 1024 + 7*256 = 2816 prologue samples
         x = (0.01 * rng.standard_normal((8, n))).astype(np.float32)
         x[:, 4000:9000] += np.sin(
             2 * np.pi * 440.0 * np.arange(5000) / 48000).astype(np.float32)
-        out = np.asarray(sharded_noise_gate(mesh, noise_frames=8, fused=True)(
+        out = np.asarray(sharded_noise_gate(mesh, noise_frames=8)(
             shard_audio(x, mesh)))
-        ref = np.asarray(sharded_noise_gate(mesh, noise_frames=8, fused=False)(
-            shard_audio(x, mesh)))
+        ref = np.asarray(jax.jit(lambda v: noise_gate(
+            v, 1024, 256, noise_frames=8))(jnp.asarray(x)))
+        ref = np.concatenate(
+            [ref, np.zeros((8, n - ref.shape[-1]), np.float32)], axis=-1)
         assert oracle.snr_db(ref.astype(np.float64) + 1e-30,
                              out.astype(np.float64) + 1e-30) >= 120.0
 
@@ -384,8 +381,7 @@ class TestShardedStretch:
 class TestShardedStreaming:
     """Channel-sharded streaming: Chain.stream jitted with the batch axis
     sharded over the channel mesh axis (DP streaming — embarrassingly
-    parallel, no collectives) equals the unsharded stream, through the
-    fused Pallas step kernels (interpret mode on CPU)."""
+    parallel, no collectives) equals the unsharded stream."""
 
     def test_stream_channel_sharded(self, rng):
         from jax.sharding import NamedSharding, PartitionSpec as P
@@ -394,9 +390,9 @@ class TestShardedStreaming:
         mesh = make_mesh(channel=8, time=1)
         h = oracle.design_fir(64, 0.3)
         chain = Chain([
-            FIRStage(h=h, nfft=1024, fused=True),
-            GateStage(nfft=1024, hop=256, noise_frames=4, fused=True),
-            StretchStage(p=4, q=3, nfft=1024, hop=256, fused=True),
+            FIRStage(h=h, nfft=1024),
+            GateStage(nfft=1024, hop=256, noise_frames=4),
+            StretchStage(p=4, q=3, nfft=1024, hop=256),
         ])
         chain.build()
         block = 4 * 16 * 256

@@ -1,5 +1,5 @@
-"""CI smoke for the multi-host harness (SURVEY.md §2 P6/P7): keeps the
->=90% 1->4-host scaling measurement (BASELINE.json:5) one command away —
+"""CI smoke for the multi-process harness (SURVEY.md §2 P6/P7): keeps the
+>=90% 1->4 scaling measurement (BASELINE.json:5) one command away —
 the full multi-process collective path (jax.distributed control plane,
 per-process mesh, ppermute halos across process boundaries) runs on
 simulated CPU hosts every CI run."""
@@ -20,11 +20,10 @@ def test_simulated_two_host_config4():
     process boundary.  Retries: the real jax.distributed control plane
     between the two simulated processes can hit connect/allgather or
     gloo key-value deadlines (fixed 30 s) when the machine is heavily
-    loaded (observed under a concurrent interpret-mode suite) — fresh
+    loaded (e.g. under a concurrent test suite) — fresh
     attempts on new ports distinguish transient timing from a genuine
     sharded-program regression."""
     env = dict(os.environ)
-    env["ASP_INTERPRET_PALLAS"] = "1"
     for attempt, port in enumerate(("9833", "9834", "9835")):
         r = subprocess.run(
             [sys.executable,
@@ -48,9 +47,7 @@ def test_scaling_harness_functional():
     """benchmarks/scaling.py sweeps 1..8 virtual devices and emits the
     efficiency report (functional smoke; perf numbers need real chips)."""
     env = dict(os.environ)
-    env["ASP_INTERPRET_PALLAS"] = "1"
     env["JAX_PLATFORMS"] = "cpu"
-    env["ASP_FORCE_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_force_host_platform_device_count=8").strip()
     r = subprocess.run(

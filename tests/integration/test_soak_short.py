@@ -1,43 +1,18 @@
-"""Short-soak regression guards for the round-5 accuracy architecture.
+"""Short-soak regression guards at CI-affordable lengths:
 
-These pin, at CI-affordable lengths, the two properties the 512-block
-on-chip soaks certify per round (docs/PERF.md "Vocoder long-stream
-soak" / "Round-5 changes"):
-
-1. the fused vocoder stream's SNR vs the f64 oracle stays in the
-   ~pinned-analysis regime (the vfft pin; unpinned bf16x3 analysis
-   measured ~20 dB lower at the same length), and
+1. the vocoder stream's SNR vs the f64 oracle stays high over 32 drained
+   blocks (the rotor phase accumulator is the long-stream risk), and
 2. the composite chain's drained long-stream profile stays flat (its
    carries are FIFO tails — any slope is a new accumulating error).
-
-Both run under the CPU bf16x3 proxy, which reproduced the on-chip soak
-segments to 0.1-0.4 dB in rounds 4-5.
 """
 
-import os
-
 import numpy as np
-import pytest
 
 from audiosignalprocess_tpu.cpu_ref import oracle
 
 
-@pytest.fixture()
-def bf16x3_mode():
-    prev = os.environ.get("ASP_MATMUL_MODE")
-    os.environ["ASP_MATMUL_MODE"] = "bf16x3"
-    yield
-    if prev is None:
-        os.environ.pop("ASP_MATMUL_MODE", None)
-    else:
-        os.environ["ASP_MATMUL_MODE"] = prev
-
-
-def test_stretch_soak_short_pinned_analysis(bf16x3_mode):
-    """32 drained vocoder blocks at shipping precision: with the vfft
-    analysis pin the stream tracks the f64 oracle at >= 95 dB (round-5
-    CPU proxy measured ~110 at this length; the UNPINNED bf16x3
-    analysis measured ~85-92 — the threshold separates the regimes)."""
+def test_stretch_soak_short_pinned_analysis():
+    """32 drained f32 vocoder blocks track the f64 oracle at >= 95 dB."""
     import jax
 
     from audiosignalprocess_tpu.pipeline import Chain, StretchStage
@@ -49,7 +24,7 @@ def test_stretch_soak_short_pinned_analysis(bf16x3_mode):
     x = (0.3 * rng.standard_normal((2, n))
          + 0.5 * np.sin(2 * np.pi * 440.0 * t)
          * np.sin(2 * np.pi * 0.3 * t)).astype(np.float32)
-    cf = Chain([StretchStage(p=4, q=3, nfft=1024, hop=256, fused=True)])
+    cf = Chain([StretchStage(p=4, q=3, nfft=1024, hop=256)])
     cf.build()
     y = np.asarray(jax.jit(lambda v: cf.stream(v, block, drain=True))(x))
     ref = np.stack([
@@ -61,7 +36,7 @@ def test_stretch_soak_short_pinned_analysis(bf16x3_mode):
     assert snr >= 95.0, snr
 
 
-def test_composite_soak_short_flat(bf16x3_mode):
+def test_composite_soak_short_flat():
     """24 drained composite blocks: overall >= 60 dB with margin AND the
     last quarter's segment SNR within 15 dB of the second quarter's (a
     flat profile — the composite has no cross-block recursion; a slope

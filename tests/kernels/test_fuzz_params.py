@@ -1,4 +1,5 @@
-"""Randomized-parameter sweeps across the fused kernels (seeded, so
+"""Randomized-parameter sweeps across overlap-save, the noise gate, the
+resampler and the envelope-folded composite stage (seeded, so
 deterministic in CI): random tap counts, FFT sizes, hops, lengths, and
 batch shapes, all oracle-checked."""
 
@@ -6,18 +7,17 @@ import numpy as np
 import pytest
 
 from audiosignalprocess_tpu.cpu_ref import oracle
-from audiosignalprocess_tpu.kernels.gate_kernel import noise_gate_fused
-from audiosignalprocess_tpu.kernels.os_kernel import overlap_save_fused
-from audiosignalprocess_tpu.kernels.resample_kernel import resample_mac
+from audiosignalprocess_tpu.effects.noise_gate import noise_gate
+from audiosignalprocess_tpu.ops.overlap_save import overlap_save
+from audiosignalprocess_tpu.ops.resample import resample_poly
 
 def _cases_os(k):
     rng = np.random.default_rng(2026)
     out = []
     for i in range(k):
         nfft = int(2 ** rng.integers(8, 13))
-        # full legal tap range (up to nfft-1; a 2026-08 soak with 60
-        # fresh-seed cases incl. taps > nfft/2, taps=1, and n < nfft
-        # passed exactly) — guarded geometries may raise ValueError
+        # full legal tap range (up to nfft-1), incl. taps > nfft/2,
+        # taps=1, and n < nfft
         hi = nfft // 2 if i % 2 == 0 else nfft
         taps = int(rng.integers(1, max(3, hi)))
         n = int(rng.integers(1 if i % 3 else nfft, 6 * nfft))
@@ -32,19 +32,13 @@ def test_overlap_save_fuzz(taps, nfft, n, b):
     x = rng.standard_normal((b, n))
     h = rng.standard_normal(taps)
     ref = np.stack([oracle.fir_direct(x[i], h) for i in range(b)])
-    try:
-        out = np.asarray(overlap_save_fused(x, h, nfft, blocks_per_step=3))
-    except ValueError:
-        # guarded geometry (too many taps for nfft's row grid): a clean
-        # reject is the contract; silent wrong output is the bug class
-        return
+    out = np.asarray(overlap_save(x, h, nfft))
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-8)
 
 
 def _cases_gate(k):
     rng = np.random.default_rng(2027)
     out = []
-    # every combo satisfies hop % row_width == 0 (row width = min(128, nfft))
     combos = [(256, 128), (512, 128), (512, 256), (1024, 256),
               (1024, 512), (2048, 512)]
     for _ in range(k):
@@ -62,7 +56,7 @@ def test_gate_fuzz(nfft, hop, n):
     lo, hi = n // 3, 2 * (n // 3)
     x[:, lo:hi] += np.sin(np.arange(hi - lo))
     ref = np.stack([oracle.noise_gate(x[c], nfft=nfft, hop=hop) for c in range(2)])
-    out = np.asarray(noise_gate_fused(x, nfft=nfft, hop=hop, frames_per_step=8))
+    out = np.asarray(noise_gate(x, nfft=nfft, hop=hop))
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-9)
 
 
@@ -89,14 +83,13 @@ def test_resample_fuzz(up, down, n, zp):
     ref = np.stack([
         oracle.resample_poly(x[i], up, down, zero_phase=zp) for i in range(2)
     ])
-    out = np.asarray(resample_mac(x, up, down, zero_phase=zp, cycle_tile=32))
+    out = np.asarray(resample_poly(x, up, down, zero_phase=zp))
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-8)
 
 
 def _cases_env(k):
-    """Random envelope tap counts across the step-kernel geometry range,
-    including row-boundary values (the e0e row round-up) and the
-    fallback region (taps-1 > nfft-n2 or a single tap)."""
+    """Random envelope tap counts, including a single tap and counts
+    around powers of two and past nfft/2."""
     rng = np.random.default_rng(2029)
     out = []
     edge = [2, 128, 129, 257, 897, 898, 1]  # around row/geometry bounds
@@ -108,9 +101,9 @@ def _cases_env(k):
 
 @pytest.mark.parametrize("env_taps", _cases_env(7))
 def test_env_fold_fuzz(env_taps):
-    """FIRGateStage(env_h) streaming == composed stages for random env
-    tap counts; out-of-geometry counts take the composed fallback with
-    identical results."""
+    """FIRGateStage(env_h) streaming == the composed FIRStage -> GateStage
+    -> EnvelopeStage stream for random env tap counts, and its carry is
+    exactly those three stages' carries."""
     import jax
     import jax.numpy as jnp
 
@@ -138,10 +131,6 @@ def test_env_fold_fuzz(env_taps):
     ref = np.asarray(jax.jit(lambda v: ref_chain.stream(v, block))(x))
     assert got.shape == ref.shape
     assert oracle.snr_db(ref + 1e-30, got + 1e-30) >= 80.0
-    # fused-fit rule == FIRGateStage._os_rows_ok: >= 3 valid OS rows
-    # (the <= 2-row unaligned slice is a Mosaic lowering crash class,
-    # docs/KERNELS.md constraint 7), tail carry >= 1 row
-    e0re = -(-(env_taps - 1) // 128)
-    fits = env_taps >= 2 and 8 - e0re >= 3
-    assert isinstance(st.init_state((2,), block, jnp.float32),
-                      dict if fits else list)
+    state = st.init_state((2,), block, jnp.float32)
+    assert isinstance(state, list) and len(state) == 3
+    assert state[2].shape == (2, env_taps - 1)

@@ -1,10 +1,11 @@
-"""Fused noise-gate Pallas kernel tests (interpret mode)."""
+"""Spectral noise gate vs the oracle: lengths, f32 SNR, odd batch,
+parameters, nfft 2048, release smoothing."""
 
 import numpy as np
 import pytest
 
 from audiosignalprocess_tpu.cpu_ref import oracle
-from audiosignalprocess_tpu.kernels.gate_kernel import noise_gate_fused
+from audiosignalprocess_tpu.effects.noise_gate import noise_gate
 
 
 @pytest.fixture(scope="module")
@@ -24,7 +25,7 @@ def _mk(rng, c, n, fs=48000):
 def test_vs_oracle_f64(rng, n):
     x = _mk(rng, 2, n)
     ref = np.stack([oracle.noise_gate(x[c]) for c in range(2)])
-    out = np.asarray(noise_gate_fused(x, frames_per_step=16))
+    out = np.asarray(noise_gate(x))
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-10)
 
@@ -32,14 +33,14 @@ def test_vs_oracle_f64(rng, n):
 def test_f32_snr(rng):
     x = _mk(rng, 4, 32768).astype(np.float32)
     ref = np.stack([oracle.noise_gate(x[c].astype(np.float64)) for c in range(4)])
-    out = np.asarray(noise_gate_fused(x))
+    out = np.asarray(noise_gate(x))
     assert oracle.snr_db(ref, out) >= 60.0
 
 
 def test_odd_batch(rng):
     x = _mk(rng, 3, 16384)
     ref = np.stack([oracle.noise_gate(x[c]) for c in range(3)])
-    out = np.asarray(noise_gate_fused(x, frames_per_step=8, batch_tile=2))
+    out = np.asarray(noise_gate(x))
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-10)
 
 
@@ -47,16 +48,16 @@ def test_params(rng):
     x = _mk(rng, 1, 16384)
     ref = oracle.noise_gate(x[0], nfft=512, hop=128, threshold_db=10.0,
                             reduction_db=40.0, noise_frames=4, window_kind="hamming")
-    out = np.asarray(noise_gate_fused(x, nfft=512, hop=128, threshold_db=10.0,
-                                      reduction_db=40.0, noise_frames=4,
-                                      window_kind="hamming", frames_per_step=16))[0]
+    out = np.asarray(noise_gate(x, nfft=512, hop=128, threshold_db=10.0,
+                                reduction_db=40.0, noise_frames=4,
+                                window_kind="hamming"))[0]
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-10)
 
 
 def test_nfft_2048(rng):
     x = _mk(rng, 2, 65536)
     ref = np.stack([oracle.noise_gate(x[c], nfft=2048, hop=512) for c in range(2)])
-    out = np.asarray(noise_gate_fused(x, nfft=2048, hop=512))
+    out = np.asarray(noise_gate(x, nfft=2048, hop=512))
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-10)
 
 
@@ -64,27 +65,5 @@ def test_nfft_2048(rng):
 def test_release_smoothing(rng, release):
     x = _mk(rng, 2, 32768)
     ref = np.stack([oracle.noise_gate(x[c], release=release) for c in range(2)])
-    out = np.asarray(noise_gate_fused(x, release=release, frames_per_step=8))
+    out = np.asarray(noise_gate(x, release=release))
     np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-10)
-
-
-def test_carry_tail_rows_matches_concat_slice():
-    """carry_tail_rows == concat([prev, new], axis=1)[:, -rows:] for
-    every rows/m relation (m < rows, == rows, > rows) and trailing-dim
-    rank.  The helper exists to dodge a Mosaic unaligned-small-slice
-    lowering crash (docs/KERNELS.md constraint 7); numerics must be
-    exactly the reference slice."""
-    import jax.numpy as jnp
-
-    from audiosignalprocess_tpu.kernels.gate_kernel import carry_tail_rows
-
-    r = np.random.default_rng(0)
-    for rows, m in [(1, 20), (2, 21), (8, 20), (8, 8), (4, 3), (5, 2),
-                    (7, 1)]:
-        for trail in [(128,), (8, 128)]:
-            prev = r.standard_normal((2, rows) + trail).astype(np.float32)
-            new = r.standard_normal((2, m) + trail).astype(np.float32)
-            ref = np.concatenate([prev, new], axis=1)[:, -rows:]
-            got = np.asarray(carry_tail_rows(jnp.asarray(prev),
-                                             jnp.asarray(new)))
-            np.testing.assert_array_equal(got, ref)

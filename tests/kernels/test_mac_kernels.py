@@ -1,11 +1,12 @@
-"""Pallas FIR / polyphase MAC kernel tests (interpret mode, SURVEY.md §4.2)."""
+"""Direct FIR and polyphase resampler vs the oracle (SURVEY.md §4.2):
+tap counts, f64 exactness, streaming history, odd sizes, rate ratios."""
 
 import numpy as np
 import pytest
 
 from audiosignalprocess_tpu.cpu_ref import oracle
-from audiosignalprocess_tpu.kernels.fir_kernel import fir_mac
-from audiosignalprocess_tpu.kernels.resample_kernel import resample_mac
+from audiosignalprocess_tpu.ops.fir import fir_direct
+from audiosignalprocess_tpu.ops.resample import resample_poly
 
 
 @pytest.fixture(scope="module")
@@ -19,7 +20,7 @@ class TestFIRMac:
         x = rng.standard_normal((4, 4000)).astype(np.float32)
         h = rng.standard_normal(taps)
         ref = np.stack([oracle.fir_direct(x[i].astype(np.float64), h) for i in range(4)])
-        out = np.asarray(fir_mac(x, h, time_tile=512))
+        out = np.asarray(fir_direct(x, h))
         assert out.shape == ref.shape
         assert oracle.snr_db(ref, out) >= 60.0
 
@@ -27,7 +28,7 @@ class TestFIRMac:
         x = rng.standard_normal((2, 1000))
         h = rng.standard_normal(33)
         ref = np.stack([oracle.fir_direct(x[i], h) for i in range(2)])
-        out = np.asarray(fir_mac(x, h, time_tile=256))
+        out = np.asarray(fir_direct(x, h))
         np.testing.assert_allclose(out, ref, rtol=1e-9, atol=1e-9)
 
     def test_history(self, rng):
@@ -36,15 +37,15 @@ class TestFIRMac:
         hist = rng.standard_normal((1, 16))
         full = np.concatenate([hist, x], axis=-1)
         ref = oracle.fir_direct(full[0], h)[16:]
-        out = np.asarray(fir_mac(x, h, history=hist, time_tile=256))[0]
+        out = np.asarray(fir_direct(x, h, history=hist))[0]
         np.testing.assert_allclose(out, ref, rtol=1e-9, atol=1e-9)
 
     def test_odd_sizes(self, rng):
-        """n not a multiple of the tile; batch not a multiple of batch_tile."""
+        """Odd length and odd batch."""
         x = rng.standard_normal((3, 777))
         h = rng.standard_normal(9)
         ref = np.stack([oracle.fir_direct(x[i], h) for i in range(3)])
-        out = np.asarray(fir_mac(x, h, time_tile=256, batch_tile=2))
+        out = np.asarray(fir_direct(x, h))
         np.testing.assert_allclose(out, ref, rtol=1e-9, atol=1e-9)
 
 
@@ -56,7 +57,7 @@ class TestResampleMac:
         ref = np.stack([
             oracle.resample_poly(x[i], up, down, zero_phase=zero_phase) for i in range(2)
         ])
-        out = np.asarray(resample_mac(x, up, down, zero_phase=zero_phase, cycle_tile=64))
+        out = np.asarray(resample_poly(x, up, down, zero_phase=zero_phase))
         assert out.shape == ref.shape
         np.testing.assert_allclose(out, ref, rtol=1e-8, atol=1e-8)
 
@@ -74,8 +75,8 @@ class TestResampleMac:
         outs = []
         for k in range(0, n, b):
             blk = x[None, k : k + b]
-            outs.append(np.asarray(resample_mac(blk, up, down, h=h, zero_phase=False,
-                                                history=hist, cycle_tile=32))[0])
+            outs.append(np.asarray(resample_poly(blk, up, down, h=h, zero_phase=False,
+                                                 history=hist))[0])
             hist = np.concatenate([hist, blk], axis=-1)[:, -hl:]
         np.testing.assert_allclose(np.concatenate(outs), ref, rtol=1e-8, atol=1e-8)
 
@@ -84,5 +85,5 @@ class TestResampleMac:
         ref = np.stack([
             oracle.resample_poly(x[i].astype(np.float64), 160, 147) for i in range(4)
         ])
-        out = np.asarray(resample_mac(x, 160, 147))
+        out = np.asarray(resample_poly(x, 160, 147))
         assert oracle.snr_db(ref, out) >= 60.0

@@ -1,12 +1,11 @@
-"""Fully-fused resample+FIR+gate kernel vs the oracle chain (interpret)."""
+"""Resample+FIR+gate composite stage (ResFIRGateStage) vs the oracle
+chain and vs its composed sub-stages."""
 
 import numpy as np
 import pytest
 
 from audiosignalprocess_tpu.cpu_ref import oracle
-from audiosignalprocess_tpu.kernels.res_chain_kernel import (
-    resample_fir_gate_fused,
-)
+from audiosignalprocess_tpu.pipeline import ResFIRGateStage
 
 
 @pytest.fixture(scope="module")
@@ -27,12 +26,24 @@ def _oracle_chain(x, up, down, h, **kw):
     return oracle.noise_gate(oracle.fir_direct(y, h), **kw)
 
 
+def resample_fir_gate(x, up, down, h, noise_frames=8, release=0.0):
+    """ResFIRGateStage.full cut to the gate's synthesis length (the stage
+    zero-pads back to the resampled length; the pad must be zero)."""
+    y = np.asarray(ResFIRGateStage(up=up, down=down, h=h, nfft=1024,
+                                   hop=256, noise_frames=noise_frames,
+                                   release=release).full(x))
+    n_rs = -(-x.shape[-1] * up // down)
+    n = 1024 + ((n_rs - 1024) // 256) * 256
+    assert y.shape[-1] == n_rs and not y[..., n:].any()
+    return y[..., :n]
+
+
 def test_vs_oracle_f64(rng):
     up, down = 160, 147
     n = 147 * 160 * 2
     x = _mk(rng, 2, n)
     h = oracle.design_fir(64, 0.3)
-    out = np.asarray(resample_fir_gate_fused(x, up, down, h, noise_frames=4))
+    out = resample_fir_gate(x, up, down, h, noise_frames=4)
     ref = np.stack([_oracle_chain(x[c], up, down, h, noise_frames=4)
                     for c in range(2)])
     assert out.shape == ref.shape
@@ -44,20 +55,19 @@ def test_f32_snr(rng):
     n = 147 * 160 * 2
     x = _mk(rng, 2, n).astype(np.float32)
     h = oracle.design_fir(64, 0.3)
-    out = np.asarray(resample_fir_gate_fused(x, up, down, h, noise_frames=4))
+    out = resample_fir_gate(x, up, down, h, noise_frames=4)
     ref = np.stack([_oracle_chain(x[c].astype(np.float64), up, down, h,
                                   noise_frames=4) for c in range(2)])
     assert oracle.snr_db(ref, out.astype(np.float64)) >= 60.0
 
 
 def test_release_and_simple_ratio(rng):
-    """2:1 ratio (R5=1 supercycle path) + release smoothing carry."""
+    """2:1 ratio + release smoothing."""
     up, down = 2, 1
     n = 16384
     x = _mk(rng, 2, n, fs=24000)
     h = oracle.design_fir(96, 0.25)
-    out = np.asarray(resample_fir_gate_fused(x, up, down, h, noise_frames=4,
-                                             release=0.7))
+    out = resample_fir_gate(x, up, down, h, noise_frames=4, release=0.7)
     ref = np.stack([_oracle_chain(x[c], up, down, h, noise_frames=4,
                                   release=0.7) for c in range(2)])
     assert out.shape == ref.shape
@@ -65,70 +75,59 @@ def test_release_and_simple_ratio(rng):
 
 
 def test_long_fir(rng):
-    """FIR taps > one supercycle exercise the e0 prefix alignment."""
+    """A long FIR (384 taps) behind the resampler."""
     up, down = 160, 147
     n = 147 * 160 * 2
     x = _mk(rng, 1, n)
     h = oracle.design_fir(384, 0.2)
-    out = np.asarray(resample_fir_gate_fused(x, up, down, h, noise_frames=4))
+    out = resample_fir_gate(x, up, down, h, noise_frames=4)
     ref = _oracle_chain(x[0], up, down, h, noise_frames=4)
     np.testing.assert_allclose(out[0], ref, rtol=1e-8, atol=1e-10)
 
 
 # ---------------------------------------------------------------------------
-# streaming step kernel (res_fir_gate_step_fused)
+# streaming step (ResFIRGateStage.step)
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("release", (0.0, 0.6))
 def test_step_vs_composed_stages(rng, release):
-    """One-kernel streaming step == ResampleStage.step -> FIRGateStage.step
-    over multiple blocks (raw block, carries in both domains)."""
+    """ResFIRGateStage.step, block by block == ResampleStage.step ->
+    FIRGateStage.step over multiple blocks (raw block, carries in both
+    domains)."""
     import jax.numpy as jnp
 
-    from audiosignalprocess_tpu.kernels.res_chain_kernel import (
-        res_fir_gate_step_fused, res_fir_gate_step_init_state,
-        res_step_geometry,
-    )
     from audiosignalprocess_tpu.pipeline import (
-        Chain, FIRGateStage, ResampleStage, _wola_const_norm,
-        _wola_head_norm,
+        Chain, FIRGateStage, ResampleStage,
     )
 
     up, down, nfft, hop = 160, 147, 1024, 256
     h = oracle.design_fir(64, 0.3)
-    h_res = oracle.resample_filter(up, down)
-    bq, oq = res_step_geometry(up, down, nfft, hop)
-    assert (bq, oq) == (2 * 588, 2 * 640) and oq % hop == 0
-    b_in = 2 * bq
+    b_in = 4 * 588
     nblocks = 5
     x = _mk(rng, 2, b_in * nblocks).astype(np.float32)
 
     fg = FIRGateStage(h=h, nfft=nfft, hop=hop, noise_frames=4,
-                      release=release, fused=True)
+                      release=release)
     chain = Chain([ResampleStage(up=up, down=down), fg])
     chain.build()
     ref = np.asarray(chain.stream(jnp.asarray(x), b_in))
 
-    st = res_fir_gate_step_init_state((2,), up, down, h_res, nfft, hop,
-                                      len(h), 4, release, jnp.float32)
+    st = ResFIRGateStage(up=up, down=down, h=h, nfft=nfft, hop=hop,
+                         noise_frames=4, release=release)
+    Chain([st]).build()
+    state = st.init_state((2,), b_in, jnp.float32)
     outs = []
     for k in range(nblocks):
-        st, y = res_fir_gate_step_fused(
-            jnp.asarray(x[:, k * b_in : (k + 1) * b_in]), st, up, down, h,
-            h_res, nfft=nfft, hop=hop, threshold_db=6.0, reduction_db=60.0,
-            noise_frames=4, release=release, window_kind="hann",
-            input_latency=0, latency=fg.latency,
-            head_norm=_wola_head_norm(nfft, hop, "hann"),
-            const_norm=_wola_const_norm(nfft, hop, "hann"))
+        state, y = st.step(state, jnp.asarray(x[:, k * b_in : (k + 1) * b_in]))
         outs.append(np.asarray(y))
     got = np.concatenate(outs, axis=-1)
-    m = min(got.shape[-1], ref.shape[-1])
-    assert oracle.snr_db(ref[:, :m] + 1e-30, got[:, :m] + 1e-30) >= 80.0
+    assert got.shape == ref.shape
+    assert oracle.snr_db(ref + 1e-30, got + 1e-30) >= 80.0
 
 
 def test_res_stage_stream_equals_full(rng):
-    """ResFIRGateStage: fused stream[lat:] == fused full == composed full."""
+    """ResFIRGateStage: stream[lat:] == full == composed full."""
     import jax.numpy as jnp
 
     from audiosignalprocess_tpu.pipeline import (
@@ -156,10 +155,9 @@ def test_res_stage_stream_equals_full(rng):
 
 
 def test_res_stage_env_one_kernel_step(rng):
-    """env_h folds the envelope demod into the SAME step kernel: the
-    ENTIRE config-5 chain (resample -> FIR -> gate -> envelope) as one
-    pallas_call per block == the four separate stages composed; the
-    whole-file path (fused res-chain kernel + envelope OS) matches too."""
+    """env_h appends the envelope demod: the ENTIRE config-5 chain
+    (resample -> FIR -> gate -> envelope) as one stage == the four
+    separate stages composed, streamed and whole-file."""
     import jax.numpy as jnp
 
     from audiosignalprocess_tpu.pipeline import (
@@ -174,7 +172,7 @@ def test_res_stage_env_one_kernel_step(rng):
     st = ResFIRGateStage(up=160, down=147, h=h, nfft=1024, hop=256,
                          noise_frames=4, env_h=he)
     state = st.init_state((2,), b_in, jnp.float32)
-    assert isinstance(state, dict) and "env_tail" in state  # one-kernel path
+    assert isinstance(state, list) and len(state[1]) == 3  # env carry
     chain = Chain([st])
     lat = chain.build()
     ref_chain = Chain([ResampleStage(up=160, down=147),
@@ -196,10 +194,8 @@ def test_res_stage_env_one_kernel_step(rng):
 
 
 def test_res_stage_fallback_f64(rng):
-    """f64 (no TPU fused path) falls back to the composed two-state step
-    with the same streaming contract.  (For 160/147 @ 1024/256 every
-    hop-valid block is also supercycle-valid, so dtype is the fallback
-    trigger with observable state shape.)"""
+    """f64 streams through the same composed two-state step, to the f64
+    streaming bound."""
     import jax.numpy as jnp
 
     from audiosignalprocess_tpu.pipeline import Chain, ResFIRGateStage

@@ -92,7 +92,7 @@ def test_time_stretch_file(tone_wav, tmp_path):
 def test_chain_file(tmp_path):
     """The flagship one-call chain (config 5 as a library function):
     resample 44.1->48k + lowpass + gate (+ envelope), whole-file and
-    one-kernel-per-block streaming, against the composed oracle chain."""
+    block streaming, against the composed oracle chain."""
     fs = 44100
     rng = np.random.default_rng(3)
     n = 588 * 120  # resampled length row-aligned
@@ -115,7 +115,7 @@ def test_chain_file(tmp_path):
     m = min(y.shape[-1], ref.shape[-1])
     assert oracle.snr_db(ref[:m], y[0, :m]) >= 60.0
 
-    # streaming block path (one Pallas kernel per block) + envelope
+    # streaming block path + envelope
     out2 = str(tmp_path / "chain_env.wav")
     api.chain_file(p, out2, rate_out=48000, noise_frames=4,
                    envelope_hz=50.0, block=2 * 1176, float_fmt=True)

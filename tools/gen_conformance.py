@@ -28,12 +28,12 @@ HEADER = """\
 GENERATED by `tools/gen_conformance.py` — edit the docstrings in
 `audiosignalprocess_tpu/cpu_ref/oracle.py`, not this file.
 
-Every compute path in the framework (jnp ops, Pallas kernels, sharded
-bodies, streaming stages) must match the float64 oracle bit-for-bit in
-structure (lengths, framing, ordering, scaling) and >= 60 dB SNR
-numerically; the native C oracle (`native/asp_ref.c`) is cross-checked
-against it to 1e-9 (`tests/unit/test_native_oracle.py`).  On-hardware
-enforcement: `tools/tpu_selfcheck.py` (exit nonzero below 60 dB).
+Every compute path in the framework (jnp ops, sharded bodies, streaming
+stages) must match the float64 oracle bit-for-bit in structure (lengths,
+framing, ordering, scaling) and >= 60 dB SNR numerically; the native C
+oracle (`native/asp_ref.c`) is cross-checked against it to 1e-9
+(`tests/unit/test_native_oracle.py`).  On-GPU enforcement: `chip_smoke.py`
+(exit nonzero below 60 dB).
 """
 
 

@@ -2,11 +2,11 @@
 """Multi-host launcher (SURVEY.md §2 P7): spawn one process per host for a
 config driver, wiring the jax.distributed control plane.
 
-On a real pod slice each host runs its own process with the standard TPU
-env; locally, ``--simulate N`` forks N CPU processes with
+On real hosts each runs its own process, given the coordinator's address;
+locally, ``--simulate N`` forks N CPU processes with
 xla_force_host_platform_device_count so the full multi-process collective
-path (DCN control plane + per-process device mesh) is exercised without
-TPU hardware.
+path (jax.distributed control plane + per-process device mesh) is
+exercised without accelerators.
 
 Usage:
     python tools/launch_multihost.py --simulate 2 -- tools/run_config_4.py --check
@@ -47,7 +47,6 @@ def main():
     for pid in range(args.simulate):
         env = dict(os.environ)
         env["JAX_PLATFORMS"] = "cpu"
-        env["ASP_FORCE_PLATFORM"] = "cpu"
         env["XLA_FLAGS"] = (
             env.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.devices_per_host}"

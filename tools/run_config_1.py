@@ -18,25 +18,24 @@ from tools.common import load_or_make, maybe_write, report, snr_db, std_parser, 
 RATE = 16000
 
 
-def main():
-    args = std_parser(__doc__).parse_args()
+def main(argv=None) -> dict:
+    args = std_parser(__doc__).parse_args(argv)
     x = load_or_make(args, channels=1, rate=RATE)
     h = design_fir(64, 0.25, window_kind="hann")
 
-    fused = not args.no_fused  # fused Pallas overlap-save is the default
-    fn = jax.jit(lambda v: overlap_save(v, h, 1024, fused=fused))
+    fn = jax.jit(lambda v: overlap_save(v, h, 1024))
     out, dt = timed(fn, x) if args.bench else (fn(x), None)
     out = np.asarray(out)
 
     snr = None
-    if args.check or True:  # config 1 is the parity config: always check
+    if True:  # config 1 is the parity config: always check
         ref = oracle.overlap_save(x[0].astype(np.float64), h, 1024)
         check(out.shape == (1, ref.shape[0]), "structural mismatch")
         snr = snr_db(ref, out[0])
         check(snr >= 60.0, f"parity FAILED: {snr:.1f} dB")
 
     maybe_write(args, out, RATE)
-    report("config1_mono_fir_overlap_save", x, out, dt, snr, args)
+    return report("config1_mono_fir_overlap_save", x, out, dt, snr, args)
 
 
 if __name__ == "__main__":

@@ -18,16 +18,13 @@ from tools.common import load_or_make, maybe_write, report, snr_db, std_parser, 
 RATE_IN, RATE_OUT = 44100, 48000
 
 
-def main():
-    args = std_parser(__doc__).parse_args()
+def main(argv=None) -> dict:
+    args = std_parser(__doc__).parse_args(argv)
     x = load_or_make(args, channels=2, rate=RATE_IN, kind="am")
     h_bp = design_fir(256, (0.1, 0.5), window_kind="hamming", pass_zero=False)
 
-    fused = not args.no_fused  # Pallas phase-matrix resample + MAC FIR
-
     def chain(v):
-        y = resample_poly(v, 160, 147, fused=fused)
-        return fir_direct(y, h_bp, fused=fused)
+        return fir_direct(resample_poly(v, 160, 147), h_bp)
 
     fn = jax.jit(chain)
     out, dt = timed(fn, x) if args.bench else (fn(x), None)
@@ -44,7 +41,7 @@ def main():
         check(snr >= 60.0, f"parity FAILED: {snr:.1f} dB")
 
     maybe_write(args, out, RATE_OUT)
-    report("config2_stereo_resample_bandpass", x, out, dt, snr, args)
+    return report("config2_stereo_resample_bandpass", x, out, dt, snr, args)
 
 
 if __name__ == "__main__":

@@ -19,21 +19,20 @@ from tools.common import load_or_make, maybe_write, report, snr_db, std_parser, 
 RATE = 48000
 
 
-def main():
-    args = std_parser(__doc__).parse_args()
+def main(argv=None) -> dict:
+    args = std_parser(__doc__).parse_args(argv)
     x = load_or_make(args, channels=8, rate=RATE)
     n = (x.shape[-1] // 256) * 256
     x = x[:, :n]
 
     ndev = len(jax.devices())
     ch = min(8, ndev)
-    fused = not args.no_fused  # fused Pallas gate kernel is the default
     if ch > 1:
         mesh = make_mesh(channel=ch, time=1)
-        fn = sharded_noise_gate(mesh, fused=fused)
+        fn = sharded_noise_gate(mesh)
         xs = shard_audio(x, mesh)
-    else:  # single chip: same math, unsharded
-        g = Chain([GateStage(fused=fused)])
+    else:  # single device: same math, unsharded
+        g = Chain([GateStage()])
         g.build()
         fn = jax.jit(g.full)
         xs = x
@@ -50,7 +49,7 @@ def main():
         check(snr >= 60.0, f"parity FAILED: {snr:.1f} dB")
 
     maybe_write(args, out, RATE)
-    report(f"config3_8ch_noise_gate_{ch}dev", x, out, dt, snr, args)
+    return report(f"config3_8ch_noise_gate_{ch}dev", x, out, dt, snr, args)
 
 
 if __name__ == "__main__":

@@ -26,12 +26,12 @@ TAPS = 4096
 NFFT = 16384
 
 
-def main():
+def main(argv=None) -> dict:
     p = std_parser(__doc__)
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    args = p.parse_args()
+    args = p.parse_args(argv)
     initialize(args.coordinator, args.num_processes, args.process_id)
 
     x = load_or_make(args, channels=CHANNELS, rate=RATE)
@@ -48,13 +48,12 @@ def main():
     blk = (x.shape[-1] // (tm * 256)) * (tm * 256)
     x = x[:, :blk]
 
-    fused = not args.no_fused  # fused Pallas overlap-save is the default
     if ndev > 1:
         mesh = make_mesh(channel=ch, time=tm)
-        fn = sharded_overlap_save(mesh, h, NFFT, fused=fused)
+        fn = sharded_overlap_save(mesh, h, NFFT)
         xs = shard_audio(x, mesh)
     else:
-        fn = jax.jit(lambda v: overlap_save(v, h, NFFT, fused=fused))
+        fn = jax.jit(lambda v: overlap_save(v, h, NFFT))
         xs = x
 
     out, dt = timed(fn, xs) if args.bench else (fn(xs), None)
@@ -70,7 +69,8 @@ def main():
         check(snr >= 60.0, f"parity FAILED: {snr:.1f} dB")
 
     maybe_write(args, out, RATE)
-    report(f"config4_64ch_4096tap_halo_{ch}x{tm}", x, out, dt, snr, args)
+    return report(f"config4_64ch_4096tap_halo_{ch}x{tm}", x, out, dt, snr,
+                  args)
 
 
 if __name__ == "__main__":

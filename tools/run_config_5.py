@@ -18,30 +18,24 @@ from audiosignalprocess_tpu.parallel.mesh import make_mesh, shard_audio
 from audiosignalprocess_tpu.parallel.sharded import sharded_chain
 from audiosignalprocess_tpu.pipeline import (
     Chain, EnvelopeStage, FIRStage, GateStage, ResampleStage,
-    ResFIRGateStage,
 )
 from audiosignalprocess_tpu.utils.validate import check
-from tools.common import load_or_make, maybe_write, report, snr_db, std_parser, timed, to_host
+from tools.common import (
+    gen_wav_path, load_or_make, maybe_write, report, snr_db, std_parser,
+    timed, to_host,
+)
 
 RATE_IN, RATE_OUT = 44100, 48000
 CHANNELS = 128
 BLOCK = 147 * 64  # input block: divisible by down=147; output block 10240
 
 
-def build_chain(fused: bool = True, composite: bool = False) -> Chain:
-    if composite:
-        # the ENTIRE chain as one composite stage: streaming steps run as
-        # ONE Pallas kernel per block (res_fir_gate_step_fused with the
-        # envelope tail folded in)
-        return Chain([ResFIRGateStage(
-            up=160, down=147, h=oracle.design_fir(64, 0.3), nfft=1024,
-            hop=256, noise_frames=8, env_h=oracle.design_fir(129, 0.01),
-            fused=fused)])
+def build_chain() -> Chain:
     return Chain([
-        ResampleStage(up=160, down=147, fused=fused),
-        FIRStage(h=oracle.design_fir(64, 0.3), nfft=1024, fused=fused),
-        GateStage(nfft=1024, hop=256, noise_frames=8, fused=fused),
-        EnvelopeStage(oracle.design_fir(129, 0.01), fused=fused),
+        ResampleStage(up=160, down=147),
+        FIRStage(h=oracle.design_fir(64, 0.3), nfft=1024),
+        GateStage(nfft=1024, hop=256, noise_frames=8),
+        EnvelopeStage(oracle.design_fir(129, 0.01)),
     ])
 
 
@@ -56,7 +50,7 @@ def run_ring(chain, wav_path, block, channels, nblocks=None, resume=None,
     dispatch: K blocks are popped at once and run through ONE jitted
     ``lax.scan`` over ``chain.step`` (identical carry semantics, K blocks
     of added latency) — on high-dispatch-cost transports this amortizes
-    the per-call round trip across K blocks.  ``warmup=True`` precompiles
+    the per-call dispatch cost across K blocks.  ``warmup=True`` precompiles
     the jitted step(s) BEFORE the timed dispatch loop (lower+compile
     only, nothing executes, carries untouched) so the returned wall time
     measures streaming rather than first-call compilation.
@@ -192,7 +186,7 @@ def run_ring(chain, wav_path, block, channels, nblocks=None, resume=None,
     return out, nblocks - start_block, dt
 
 
-def main():
+def main(argv=None) -> dict:
     p = std_parser(__doc__)
     p.add_argument("--mode", choices=("stream", "sharded", "ring"),
                    default="stream")
@@ -206,31 +200,22 @@ def main():
                    help="ring mode: micro-batch K blocks per device call "
                         "(one lax.scan step; amortizes dispatch latency at "
                         "K blocks of added latency)")
-    p.add_argument("--composite", action="store_true",
-                   help="run the whole chain as ONE composite stage whose "
-                        "streaming step is a single Pallas kernel per block "
-                        "(resample+FIR+gate+envelope folded)")
     p.add_argument("--drain", action="store_true",
                    help="ring mode: process the ENTIRE file — zero-pad the "
                         "tail remainder, flush the carried latency, emit "
                         "exactly chain.out_len(num_frames) samples (matches "
                         "chain.full_flush)")
-    args = p.parse_args()
+    args = p.parse_args(argv)
     initialize(args.coordinator, args.num_processes, args.process_id)
 
     x = load_or_make(args, channels=CHANNELS, rate=RATE_IN)
-    chain = build_chain(fused=not args.no_fused, composite=args.composite)
+    chain = build_chain()
     lat = chain.build()
 
     if args.mode == "ring":
-        import tempfile
-
         from audiosignalprocess_tpu.utils.profiling import BlockLogger
 
-        wav_path = args.input
-        if wav_path is None:
-            wav_path = os.path.join(tempfile.gettempdir(),
-                                    f"asp_gen_{CHANNELS}ch_{RATE_IN}.wav")
+        wav_path = args.input or gen_wav_path(CHANNELS, RATE_IN, args.seed)
         logger = BlockLogger() if args.json or args.bench else None
         out, nb, dt = run_ring(chain, wav_path, BLOCK, CHANNELS,
                                logger=logger, batch_blocks=args.ring_batch,
@@ -273,9 +258,8 @@ def main():
         # samples/s as total input samples / dt, so dt must cover the
         # whole input, not one block)
         tag = f"_b{args.ring_batch}" if args.ring_batch > 1 else ""
-        report(f"config5_streaming_{CHANNELS}ch_ring{tag}", x_host, out,
-               dt, snr, args)
-        return
+        return report(f"config5_streaming_{CHANNELS}ch_ring{tag}", x_host,
+                      out, dt, snr, args)
 
     if args.mode == "stream":
         n = (x.shape[-1] // BLOCK) * BLOCK
@@ -307,7 +291,8 @@ def main():
         check(snr >= 60.0, f"parity FAILED: {snr:.1f} dB")
 
     maybe_write(args, out, RATE_OUT)
-    report(f"config5_streaming_{CHANNELS}ch_{args.mode}", x_host, out, dt, snr, args)
+    return report(f"config5_streaming_{CHANNELS}ch_{args.mode}", x_host, out,
+                  dt, snr, args)
 
 
 if __name__ == "__main__":
